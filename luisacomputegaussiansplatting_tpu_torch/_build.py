@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At its first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``build/torch_kernels/<name>-<hash>.so`` beside the package and loaded with
+``ctypes``; the hash covers the source and the flags, so an edited source is
+rebuilt and an unchanged one is reused. Nothing is compiled at import time.
+
+A failed build raises: there is no fallback to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+# no --use_fast_math: the kernels must round like the plain versions
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class KernelLib:
+    """One ``csrc/<name>.cu`` shared library, built on first use.
+
+    ``launches`` counts kernel launches; a wrapper adds one where it
+    launches the kernel and nowhere else.
+    """
+
+    def __init__(self, name: str, signatures: dict):
+        self.name = name
+        self.signatures = signatures  # C function -> (restype, argtypes)
+        self.launches = 0
+        self.build_seconds = None
+        self._lib = None
+        self._lock = threading.Lock()
+
+    @property
+    def source(self) -> str:
+        return os.path.join(CSRC_DIR, f"{self.name}.cu")
+
+    def lib(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load()
+            return self._lib
+
+    def _load(self) -> ctypes.CDLL:
+        with open(self.source, "rb") as f:
+            src = f.read()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+        path = os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            t0 = time.perf_counter()
+            # build to a private name, then rename: a concurrent build never
+            # loads a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, path)
+            self.build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(path)
+        for fn, (restype, argtypes) in self.signatures.items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = argtypes
+        return lib
+
+    def check(self, err: int, fn: str) -> None:
+        """Raise on a non-zero cudaError_t returned by a launch."""
+        if err != 0:
+            raise RuntimeError(
+                f"CUDA launch of {self.name}.{fn} failed: cudaError_t {err}"
+            )
+
+
+def require_cuda_tensors(fn: str, *tensors) -> None:
+    """Every argument must be a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{fn}: expected CUDA tensors on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: expected contiguous tensors")

@@ -1,0 +1,57 @@
+"""Synthetic scenes for tests and benchmarks (port of ``io/synthetic.py``).
+
+Both generators make their arrays in numpy with the same RNG calls, in the
+same order and precision, as the JAX package, so ``random_scene(n, seed)``
+gives bit-identical float32 arrays in both packages; only the last step,
+the copy to ``device``, differs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..models.gaussians import GaussianScene, from_numpy
+from ..utils.sh import num_sh_coeffs, sh_from_color
+
+
+def create_cube_scene(origin=(-1.0, -1.0, -1.0), side=(2.0, 2.0, 2.0),
+                      nx: int = 8, scale: float = 0.05, opacity: float = 0.8,
+                      sh_degree: int = 3, device="cpu") -> GaussianScene:
+    """Regular grid of isotropic gaussians coloured by normalised position
+    (reference app/gaussians.cpp:47-73)."""
+    u = np.arange(nx, dtype=np.float32) / nx
+    grid = np.stack(np.meshgrid(u, u, u, indexing="ij"), axis=-1).reshape(-1, 3)
+    means = np.asarray(origin, np.float32) + grid * np.asarray(side, np.float32)
+    n = means.shape[0]
+    sh = np.zeros((n, num_sh_coeffs(sh_degree), 3), np.float32)
+    sh[:, 0, :] = sh_from_color(grid)  # position-coded RGB
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 3] = 1.0
+    return from_numpy(
+        means,
+        np.full((n, 3), scale, np.float32),
+        quats,
+        np.full((n,), opacity, np.float32),
+        sh,
+        device,
+    )
+
+
+def random_scene(n: int, seed: int = 0, extent: float = 3.0,
+                 scale_range=(0.01, 0.15), sh_degree: int = 3,
+                 sh_rest_std: float = 0.05, device="cpu") -> GaussianScene:
+    """Reproducible random scene with anisotropic, rotated gaussians."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    log_lo, log_hi = np.log(scale_range[0]), np.log(scale_range[1])
+    scales = np.exp(rng.uniform(log_lo, log_hi, (n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    opacities = rng.uniform(0.2, 0.95, (n,)).astype(np.float32)
+    k = num_sh_coeffs(sh_degree)
+    sh = np.zeros((n, k, 3), np.float32)
+    base = rng.uniform(0.05, 0.95, (n, 3))
+    sh[:, 0, :] = sh_from_color(base)
+    if k > 1:
+        sh[:, 1:, :] = rng.normal(0.0, sh_rest_std, (n, k - 1, 3))
+    return from_numpy(means, scales, quats, opacities, sh, device)
