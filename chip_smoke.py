@@ -4,34 +4,52 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``luisacomputegaussiansplatting_tpu_torch/
-csrc``, holds each against its plain PyTorch version, and drives the port's
-forward render path end to end:
+csrc`` (one nvcc per source, all at once), holds each against its plain
+PyTorch version, and drives the port's render and training paths end to end:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions and the
      kernel build time;
-  1. kernels against plain versions at test scale: a 20K-gaussian random
-     scene at 320x240 over tile 16, 32 and 32x16, both pack modes, cull off
-     and on — the expansion kernel must equal the plain expansion bit for
-     bit, the blend kernel must agree with the plain rasterizer within the
-     tolerance below;
+  1. forward kernels against plain versions at test scale: a 20K-gaussian
+     random scene at 320x240 over tile 16, 32 and 32x16, both pack modes,
+     cull off and on — the expansion kernel must equal the plain expansion
+     bit for bit, the blend kernel must agree with the plain rasterizer
+     within BLEND_TOL below;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063;
-  3. the full slice: a 2M-gaussian random scene at 1920x1080 through
+  3. the forward slice: a 2M-gaussian random scene at 1920x1080 through
      ``render_aux`` with the strict-parity config, re-run stage by stage with
-     the plain versions, and timed.
+     the plain versions, and timed;
+  4. backward kernels against plain versions at phase 1's scale and
+     settings: the backward blend against ``rasterize_backward_reference``
+     on a random residual, the segment-sum in f32 and bf16 against
+     ``index_add_``; each kernel run twice must give the same bits;
+  5. the differentiable slice at phase 3's size: loss = image sum, backward
+     to all five gaussian groups and the background, in f32 and with the
+     bf16 gradient reduction; stage by stage against the plain versions;
+     the forward+backward frame timed over chained reps; then five training
+     steps with ``make_train_step``.
 
-Blend tolerance: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of
-the pixels (transmittance-stop flips), which stay <= 2e-2.
+BLEND_TOL: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of the
+pixels (transmittance-stop flips), which stay <= 2e-2.
+GRAD_TOL (backward blend, and the five groups' gradients): |diff| <= 1e-4 x
+the field's max |plain|, except at most 1e-5 of the entries (stop flips),
+which stay <= 2e-2 x that max.
+SUM_TOL (segment-sum against index_add_, another summation order): |diff|
+<= 1e-5 x the column's max |sum|.
 
 Every failed check exits non-zero; with no CUDA device it fails at once. The
 last line of standard output is one JSON object naming the device; the line
-before it is the per-kernel JSON record.
+before it is the per-kernel JSON record; the line before that, the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -41,7 +59,21 @@ import time
 TOL = 5e-4
 FLIP_TOL = 2e-2
 FLIP_SHARE = 1e-5
+GRAD_TOL = 1e-4
+SUM_TOL = 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = "luisacomputegaussiansplatting_tpu_torch/csrc"
+JAX_OPS = "luisacomputegaussiansplatting_tpu/ops"
+
+# published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per (entry, pixel) pair, counted from the kernels: the
+# conic quadratic and its test for every evaluated pair; for an applied
+# pair the forward adds exp, log1p, exp, a division and the colour sums,
+# the backward also the nine gradient terms and their share of the shuffles
+OPS_PER_PAIR = 10
+OPS_PER_APPLIED = {"forward": 15, "backward": 50}
 
 
 class SmokeFailure(Exception):
@@ -72,6 +104,67 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(result, milliseconds) of one run of ``fn()``, with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP32 operations over the FP32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_libs():
+    from luisacomputegaussiansplatting_tpu_torch.ops import expand, rasterize, segsum
+
+    return [expand.KERNEL, rasterize.KERNEL, rasterize.BACKWARD_KERNEL,
+            segsum.KERNEL]
+
+
+def reset_launches():
+    from luisacomputegaussiansplatting_tpu_torch.ops import segsum
+
+    for k in kernel_libs():
+        k.launches = 0
+    for dtype in segsum.LAUNCHES:
+        segsum.LAUNCHES[dtype] = 0
+
+
+def read_launches():
+    """Launches per kernel since the last reset; the segment-sum per row
+    variant."""
+    from luisacomputegaussiansplatting_tpu_torch.ops import segsum
+
+    counts = {k.name: k.launches for k in kernel_libs()
+              if k is not segsum.KERNEL}
+    counts.update({f"segsum_{d}": n for d, n in segsum.LAUNCHES.items()})
+    return counts
+
+
+def check_launches(tag, got, want):
+    """The launches of one path are exactly ``want``."""
+    log(f"{tag}: launches {got}")
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+
+
+def used_slots(binned):
+    """Payload slots the tile ranges cover: the binners lay the ranges end
+    to end from slot 0. The backward blend writes only these."""
+    return int(binned.tile_starts[-1]) + int(binned.tile_counts[-1])
 
 
 def compare_expansion(proj, grid_x, num_tiles, max_pairs, cull_op, tile, cfg):
@@ -125,10 +218,78 @@ def check_blend(tag, max_d, n_over, n_pix):
           f"{tag}: blend kernel disagrees with the plain rasterizer")
 
 
-def phase0():
+def check_fields(tag, what, got, want, names, rows=None):
+    """GRAD_TOL per field (column) of ``got`` vs ``want`` (items x fields),
+    over ``rows`` (a bool mask of the items to hold, default all). Returns
+    the largest |diff| over max |want| of any field."""
     import torch
 
-    from luisacomputegaussiansplatting_tpu_torch.ops import expand, rasterize
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite {what}")
+    allowed = int(FLIP_SHARE * got.shape[0])
+    worst, parts = 0.0, []
+    for i, name in enumerate(names):
+        scale = float(want[:, i].abs().max()) + 1e-30
+        rel = (got[:, i] - want[:, i]).abs() / scale
+        n_over = int((rel > GRAD_TOL).sum())
+        worst = max(worst, float(rel.max()))
+        parts.append(f"{name} {float(rel.max()):.2e}/{n_over}")
+        check(n_over <= allowed and float(rel.max()) <= FLIP_TOL,
+              f"{tag}: {what} {name} kernel vs plain: max rel "
+              f"{float(rel.max()):.3e}, {n_over} over {GRAD_TOL:g} "
+              f"(allowed {allowed})")
+    log(f"{tag}: {what} max|d|/max|plain| (count over {GRAD_TOL:g}, allowed "
+        f"{allowed}): {' '.join(parts)}")
+    return worst
+
+
+def check_sums(tag, got, want):
+    """SUM_TOL per column; returns the max |diff|."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite sums")
+    scale = want.abs().amax(dim=0) + 1e-30
+    rel = float(((got - want).abs() / scale).max())
+    check(rel <= SUM_TOL, f"{tag}: segment-sum kernel vs index_add_: max "
+                          f"|d|/max|sum| {rel:.3e} > {SUM_TOL:g}")
+    return float((got - want).abs().max()), rel
+
+
+def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg):
+    """(evaluated, applied) (entry, pixel) pairs of a blend over this
+    payload: every in-image pixel against its tile's real entries up to and
+    including the one where it stops, and of those the pairs it applies;
+    from the plain forward's replay (for the kernels' bounds)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import (
+        _tile_batches,
+        replay,
+        tile_pixel_coords,
+    )
+
+    tw, th = cfg.tile_wh
+    starts = tile_starts.to(torch.int64)
+    counts = tile_counts.to(torch.int64)
+    evaluated = applied = 0
+    with torch.no_grad():
+        for sel in _tile_batches(tile_counts, tw * th, payload.device):
+            px, py, t0 = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+            r = replay(payload, starts[sel], counts[sel], px, py, t0, cfg)
+            if r.t_after.shape[1] == 0:
+                continue
+            ok = r.t_after >= cfg.transmittance_eps  # True until the stop
+            real = (r.in_range & (r.f[5] > 0))[:, :, None]
+            stopped = ~ok[:, -1, :]
+            per_pixel = (ok & real).sum(1) + stopped.to(torch.int64)
+            evaluated += int((per_pixel * (t0 > 0)).sum())
+            applied += int(r.applied.sum())
+    return evaluated, applied
+
+
+def phase0():
+    import torch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,64 +300,87 @@ def phase0():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    for k in (expand.KERNEL, rasterize.KERNEL):
-        k.lib()
+    libs = kernel_libs()
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.lib(), libs))
+    for k in libs:
         built = "cached" if k.build_seconds is None else f"{k.build_seconds:.2f} s"
         log(f"kernel {k.name}: built ({built})")
     log(f"kernel build total: {time.perf_counter() - t0:.2f} s")
     return smi[0]
 
 
-def phase1(dev):
-    import torch
-
+def test_scenes(dev):
+    """Phase 1 and 4's settings: (tag, cfg, camera, scene)."""
     from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera, random_scene
-    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, bin_gaussians_nopack
-    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
-    from luisacomputegaussiansplatting_tpu_torch.ops.render import build_payload
-    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
 
-    w, h = 320, 240
     scene = random_scene(20_000, seed=1, device=dev)
     cam = look_at_camera((3.0, -2.5, 2.0), (0, 0, 0), (0, 0, 1), fov=70.0,
-                         width=w, height=h)
+                         width=320, height=240)
     for tile, tile_h in ((16, None), (32, None), (32, 16)):
         for pack in ("chunk", "none"):
             for cull in (False, True):
-                tag = f"phase1 tile={tile}x{tile_h or tile} pack={pack} cull={cull}"
+                tag = f"tile={tile}x{tile_h or tile} pack={pack} cull={cull}"
                 cfg = RenderConfig(max_pairs=2_000_000, tile=tile,
                                    tile_h=tile_h, pack_mode=pack,
                                    tile_cull=cull)
-                with torch.no_grad():
-                    proj = project_gaussians(scene.means, scene.scales,
-                                             scene.quats, cam, cfg)
-                    gx, gy = tile_grid(w, h, cfg.tile_wh)
-                    cull_op = scene.opacities if cull else None
-                    k, _ = compare_expansion(proj, gx, gx * gy, cfg.max_pairs,
-                                             cull_op, cfg.tile_wh, cfg)
-                    binner = bin_gaussians if pack == "chunk" else bin_gaussians_nopack
-                    args = (proj, gx, gy, cfg.max_pairs, cull_op, cfg.tile_wh,
-                            cfg.alpha_min)
-                    bk = binner(*args, expansion="auto")
-                    bp = binner(*args, expansion="xla")
-                    for f in bk._fields:
-                        check(torch.equal(getattr(bk, f), getattr(bp, f)),
-                              f"{tag}: binning {f} differs kernel vs plain")
-                    check(not bool(bk.overflow), f"{tag}: overflow")
-                    colors = compute_colors(scene.means, scene.sh,
-                                            cam.position)
-                    payload = build_payload(proj, colors, scene.opacities, bk)
-                    ck, tk = rasterize_forward(payload, bk.tile_starts,
-                                               bk.tile_counts, gx, w, h, cfg)
-                    cp, tp = rasterize_reference(payload, bk.tile_starts,
-                                                 bk.tile_counts, gx, w, h, cfg)
-                    torch.cuda.synchronize()
-                log(f"{tag}: expansion identical, total={int(k[3])} "
-                    f"num_rendered={int(bk.num_rendered)}")
-                check_blend(tag, *blend_diff(ck, tk, cp, tp, gx, gy, w, h,
-                                             cfg.tile_wh))
+                yield tag, cfg, cam, scene
+
+
+def bin_and_payload(scene, cam, cfg, expansion="auto"):
+    """(proj, grid, binned, payload) of a scene (no autograd)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, bin_gaussians_nopack
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import build_payload
+    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
+
+    with torch.no_grad():
+        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
+                                 cfg)
+        gx, gy = tile_grid(cam.width, cam.height, cfg.tile_wh)
+        cull_op = scene.opacities if cfg.tile_cull else None
+        binner = bin_gaussians if cfg.pack_mode == "chunk" else bin_gaussians_nopack
+        binned = binner(proj, gx, gy, cfg.max_pairs, cull_op, cfg.tile_wh,
+                        cfg.alpha_min, expansion=expansion)
+        colors = compute_colors(scene.means, scene.sh, cam.position)
+        payload = build_payload(proj, colors, scene.opacities, binned)
+    return proj, (gx, gy), binned, payload
+
+
+def phase1(dev):
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, bin_gaussians_nopack
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+
+    for tag, cfg, cam, scene in test_scenes(dev):
+        tag = f"phase1 {tag}"
+        w, h = cam.width, cam.height
+        proj, (gx, gy), bk, payload = bin_and_payload(scene, cam, cfg)
+        with torch.no_grad():
+            cull_op = scene.opacities if cfg.tile_cull else None
+            k, _ = compare_expansion(proj, gx, gx * gy, cfg.max_pairs,
+                                     cull_op, cfg.tile_wh, cfg)
+            binner = bin_gaussians if cfg.pack_mode == "chunk" else bin_gaussians_nopack
+            bp = binner(proj, gx, gy, cfg.max_pairs, cull_op, cfg.tile_wh,
+                        cfg.alpha_min, expansion="xla")
+            for f in bk._fields:
+                check(torch.equal(getattr(bk, f), getattr(bp, f)),
+                      f"{tag}: binning {f} differs kernel vs plain")
+            check(not bool(bk.overflow), f"{tag}: overflow")
+            ck, tk = rasterize_forward(payload, bk.tile_starts,
+                                       bk.tile_counts, gx, w, h, cfg)
+            cp, tp = rasterize_reference(payload, bk.tile_starts,
+                                         bk.tile_counts, gx, w, h, cfg)
+            torch.cuda.synchronize()
+        log(f"{tag}: expansion identical, total={int(k[3])} "
+            f"num_rendered={int(bk.num_rendered)}")
+        check_blend(tag, *blend_diff(ck, tk, cp, tp, gx, gy, w, h,
+                                     cfg.tile_wh))
 
 
 def phase2():
@@ -217,40 +401,41 @@ def phase2():
           "render_cli printed no num_rendered / rep_ms line")
 
 
-def phase3(dev):
-    import torch
-
+def headline(dev):
+    """Phase 3 and 5's configuration: (scene, camera, cfg)."""
     from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera, random_scene
-    from luisacomputegaussiansplatting_tpu_torch.ops import expand, rasterize
-    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, expand_entries
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
-    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
-    from luisacomputegaussiansplatting_tpu_torch.ops.render import build_payload, render_aux
-    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
 
-    w, h = 1920, 1080
-    cfg = RenderConfig(max_pairs=16_000_000)
     # numpy-RNG realisation of the JAX bench.py headline scene (bench.py
     # draws it with jax.random: same distributions, other numbers)
     scene = random_scene(2_000_000, seed=0, extent=3.0,
                          scale_range=(0.004, 0.02), device=dev)
     cam = look_at_camera((3.5, -3.0, 2.2), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
-                         fov=65.0, width=w, height=h)
+                         fov=65.0, width=1920, height=1080)
+    return scene, cam, RenderConfig(max_pairs=16_000_000)
+
+
+def phase3(dev):
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, expand_entries
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, render_aux
+
+    scene, cam, cfg = headline(dev)
+    w, h = cam.width, cam.height
     args = scene.render_args()
 
     with torch.no_grad():
         # the main path, with the launch counts taken over exactly this run
-        expand.KERNEL.launches = 0
-        rasterize.KERNEL.launches = 0
+        reset_launches()
         img, aux = render_aux(*args, cam, cfg=cfg)
         torch.cuda.synchronize()
-        launches = {"expand": expand.KERNEL.launches,
-                    "rasterize": rasterize.KERNEL.launches}
-        log(f"phase3: main-path launches {launches}")
-        check(all(v > 0 for v in launches.values()),
-              "a kernel of the main path was never launched")
+        launches = read_launches()
+        check_launches("phase3 main path", launches, {
+            "expand": 1, "rasterize": 1, "rasterize_backward": 0,
+            "segsum_f32": 0, "segsum_bf16": 0})
         check(not bool(aux.overflow), "phase3: overflow")
         check(tuple(img.shape) == (3, h, w), f"image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -258,33 +443,26 @@ def phase3(dev):
         check(num_rendered > 0, "nothing rendered")
 
         # the stages again, kernel against plain, on the same card
-        colors = compute_colors(scene.means, scene.sh, cam.position)
-        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
-                                 cfg)
-        gx, gy = tile_grid(w, h, cfg.tile_wh)
+        proj, (gx, gy), bp, payload = bin_and_payload(scene, cam, cfg,
+                                                      expansion="xla")
         nt = gx * gy
         k, k1_err = compare_expansion(proj, gx, nt, cfg.max_pairs, None,
                                       cfg.tile_wh, cfg)
         aabb_total = int(k[3])
-        bargs = (proj, gx, gy, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min)
-        bk = bin_gaussians(*bargs, expansion="auto")
-        bp = bin_gaussians(*bargs, expansion="xla")
+        bk = bin_gaussians(proj, gx, gy, cfg.max_pairs, None, cfg.tile_wh,
+                           cfg.alpha_min, expansion="auto")
         for f in bk._fields:
             check(torch.equal(getattr(bk, f), getattr(bp, f)),
                   f"phase3: binning {f} differs kernel vs plain")
         check(int(bk.num_rendered) == num_rendered,
               "phase3: num_rendered differs from the main path")
-        payload = build_payload(proj, colors, scene.opacities, bp)
         ck, tk = rasterize_forward(payload, bp.tile_starts, bp.tile_counts,
                                    gx, w, h, cfg)
         cp, tp = rasterize_reference(payload, bp.tile_starts, bp.tile_counts,
                                      gx, w, h, cfg)
-        torch.cuda.synchronize()
         blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
         check_blend("phase3", *blend)
         # the main-path image against the all-plain one
-        from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image
-
         img_p, t_p = _tiles_to_image(cp, tp, gx, gy, w, h, cfg.tile_wh)
         d = torch.maximum((img - img_p).abs().amax(dim=0),
                           (aux.transmittance - t_p).abs())
@@ -304,14 +482,11 @@ def phase3(dev):
         render_aux(*args, cam, cfg=cfg)  # warm-up
         frames = []
         for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            render_aux(*args, cam, cfg=cfg)
-            end.record()
-            torch.cuda.synchronize()
-            frames.append(start.elapsed_time(end))
+            frames.append(timed_once(lambda: render_aux(*args, cam,
+                                                        cfg=cfg))[1])
         peak = torch.cuda.max_memory_allocated() / 2**30
+        evaluated, applied = pair_counts(payload, bp.tile_starts,
+                                         bp.tile_counts, gx, w, h, cfg)
 
     frame_ms = statistics.median(frames)
     log(f"phase3: 2M gaussians 1920x1080 strict-parity: aabb_total={aabb_total} "
@@ -320,19 +495,319 @@ def phase3(dev):
         f"(all: {' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
     log(f"phase3: expansion kernel {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; "
         f"blend kernel {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms")
-    pkg = "luisacomputegaussiansplatting_tpu_torch/csrc"
-    return {"kernels": [
+    log(f"phase3: blend pairs evaluated {evaluated} applied {applied}")
+
+    # bounds from this run's inputs: each input read once, each output
+    # written once; the slots the ranges use of the payload
+    used = used_slots(bp)
+    n_g = scene.means.shape[0]
+    k1_bytes = n_g * 28 + cfg.max_pairs * 12  # ends, rects, depth -> 3 x 4 B
+    k1_bound = bound(k1_bytes, cfg.max_pairs * n_g.bit_length())
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    k2_bytes = used * 9 * 4 + nt * 8 + nt * pix * 16
+    k2_bound = bound(k2_bytes, evaluated * OPS_PER_PAIR
+                     + applied * OPS_PER_APPLIED["forward"])
+    context = dict(scene=scene, cam=cam, cfg=cfg, pairs=(evaluated, applied),
+                   used=used)
+    return [
         {"name": "expand_entries", "route": "cuda",
-         "source": f"{pkg}/expand.cu",
-         "replaces": "luisacomputegaussiansplatting_tpu/ops/expand_pallas.py:137",
+         "source": f"{PKG}/expand.cu",
+         "replaces": f"{JAX_OPS}/expand_pallas.py:137",
          "launches": launches["expand"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "rasterize_forward", "route": "cuda",
-         "source": f"{pkg}/rasterize.cu",
-         "replaces": "luisacomputegaussiansplatting_tpu/ops/rasterize_pallas.py:282",
+         "source": f"{PKG}/rasterize.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
          "launches": launches["rasterize"], "max_abs_err": blend[0],
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]}
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+    ], context
+
+
+def random_residual(color, trans, seed):
+    """[dL/dC, dL/dT, C_final, T_final] with normal cotangents drawn on the
+    device from ``seed`` and the forward's own C and T."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual
+
+    gen = torch.Generator(device=color.device).manual_seed(seed)
+    d_color = torch.randn(color.shape, generator=gen, device=color.device)
+    d_trans = torch.randn(trans.shape, generator=gen, device=color.device)
+    return make_residual(d_color, d_trans, color, trans)
+
+
+def backward_stages(tag, payload, binned, residual, gx, w, h, cfg, n_out):
+    """The backward blend kernel (twice: same bits in every slot it writes,
+    those of the tile ranges) against the plain backward, then the
+    segment-sum kernel in f32 and bf16 (twice each) against index_add_, on
+    the kernel's own per-entry gradient. Returns the kernel outputs and the
+    measured errors."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_backward_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import reduce_fields_by_id, segment_sum_reference
+
+    ranges = (binned.tile_starts, binned.tile_counts)
+    dk = rasterize_backward(payload, *ranges, residual, gx, w, h, cfg)
+    dk2 = rasterize_backward(payload, *ranges, residual, gx, w, h, cfg)
+    dp, plain_ms = timed_once(lambda: rasterize_backward_reference(
+        payload, *ranges, residual, gx, w, h, cfg))
+    used = used_slots(binned)
+    check(torch.equal(dk[:, :used], dk2[:, :used]),
+          f"{tag}: backward blend kernel is not deterministic (two runs "
+          "differ)")
+    fields = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b")
+    err = check_fields(tag, "d_payload", dk.t(), dp.t(), fields,
+                       rows=binned.entry_gid >= 0)
+    b2_abs = float((dk[:, :used] - dp[:, :used]).abs().max())
+    out = {"b2": (dk, dp, b2_abs, err, plain_ms)}
+    for dtype in ("f32", "bf16"):
+        s1 = reduce_fields_by_id(binned.entry_gid, dk, n_out, dtype)
+        s2 = reduce_fields_by_id(binned.entry_gid, dk, n_out, dtype)
+        check(torch.equal(s1, s2), f"{tag}: segment-sum {dtype} kernel is not "
+                                   "deterministic (two runs differ)")
+        sp = segment_sum_reference(binned.entry_gid, dk.t(), n_out, dtype)
+        abs_err, rel = check_sums(f"{tag} segsum {dtype}", s1, sp)
+        out[dtype] = (s1, sp, abs_err, rel)
+    log(f"{tag}: backward blend same bits twice, max|d|={b2_abs:.3e} "
+        f"(rel {err:.2e}); segment-sum same bits twice, f32 max|d|/max|sum|="
+        f"{out['f32'][3]:.2e} bf16 {out['bf16'][3]:.2e}")
+    return out
+
+
+def phase4(dev):
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+
+    for i, (tag, cfg, cam, scene) in enumerate(test_scenes(dev)):
+        tag = f"phase4 {tag}"
+        w, h = cam.width, cam.height
+        _proj, (gx, _gy), binned, payload = bin_and_payload(scene, cam, cfg)
+        with torch.no_grad():
+            color, trans = rasterize_forward(payload, binned.tile_starts,
+                                             binned.tile_counts, gx, w, h, cfg)
+            residual = random_residual(color, trans, seed=i)
+            backward_stages(tag, payload, binned, residual, gx, w, h, cfg,
+                            scene.means.shape[0])
+            torch.cuda.synchronize()
+
+
+def grad_leaves(scene):
+    return [t.detach().clone().requires_grad_(True)
+            for t in scene.render_args()]
+
+
+def fwd_bwd(leaves, bg, cam, cfg):
+    """One differentiable frame: loss = image sum (bench.py), backward to
+    the five gaussian groups and the background."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+
+    img, aux = render_aux(*leaves, cam, bg_color=bg, cfg=cfg)
+    loss = img.sum()
+    grads = torch.autograd.grad(loss, [*leaves, bg])
+    return loss.detach(), grads, aux
+
+
+def phase5(dev, ctx):
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
+
+    scene, cam, cfg = ctx["scene"], ctx["cam"], ctx["cfg"]
+    w, h = cam.width, cam.height
+    cfg16 = dataclasses.replace(cfg, grad_reduce_dtype="bf16")
+    leaves = grad_leaves(scene)
+    bg = torch.zeros(3, device=dev, requires_grad=True)
+    names = ("means", "scales", "quats", "opacities", "sh", "bg")
+
+    # the differentiable paths, each with the launch counts over exactly it:
+    # one frame launches each kernel of its path once, and only its own
+    # segment-sum variant
+    one = {"expand": 1, "rasterize": 1, "rasterize_backward": 1}
+    reset_launches()
+    loss, grads, aux = fwd_bwd(leaves, bg, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches("phase5 f32 frame", launches,
+                   {**one, "segsum_f32": 1, "segsum_bf16": 0})
+    reset_launches()
+    _loss16, grads16, _ = fwd_bwd(leaves, bg, cam, cfg16)
+    torch.cuda.synchronize()
+    launches16 = read_launches()
+    check_launches("phase5 bf16-reduce frame", launches16,
+                   {**one, "segsum_f32": 0, "segsum_bf16": 1})
+    check(not bool(aux.overflow), "phase5: overflow")
+    check(bool(torch.isfinite(loss)), "phase5: non-finite loss")
+    for name, g, leaf in zip(names, grads, [*leaves, bg]):
+        check(g.shape == leaf.shape and bool(torch.isfinite(g).all()),
+              f"phase5: gradient of {name} is not finite or mis-shaped")
+        check(float(g.abs().max()) > 0, f"phase5: zero gradient of {name}")
+
+    # stage by stage: the same frame with plain versions
+    with torch.no_grad():
+        proj, (gx, gy), binned, payload = bin_and_payload(scene, cam, cfg)
+        color, trans = rasterize_forward(payload, binned.tile_starts,
+                                         binned.tile_counts, gx, w, h, cfg)
+    c_leaf = color.requires_grad_(True)
+    t_leaf = trans.requires_grad_(True)
+    img_c, img_t = _tiles_to_image(c_leaf, t_leaf, gx, gy, w, h, cfg.tile_wh)
+    d_color, d_trans = torch.autograd.grad(
+        (img_c + bg.detach()[:, None, None] * img_t[None]).sum(),
+        [c_leaf, t_leaf])
+    with torch.no_grad():
+        residual = make_residual(d_color, d_trans, color.detach(),
+                                 trans.detach())
+        st = backward_stages("phase5", payload, binned, residual, gx, w, h,
+                             cfg, scene.means.shape[0])
+    dk, dp, b2_abs, _b2_rel, b2_plain = st["b2"]
+
+    # the five groups' gradients through the all-plain backward
+    n = scene.means.shape[0]
+    with torch.no_grad():
+        d_table = segment_sum_reference(binned.entry_gid, dp.t(), n)
+    colors = compute_colors(leaves[0], leaves[4], cam.position)
+    proj_g = project_gaussians(leaves[0], leaves[1], leaves[2], cam, cfg)
+    table = payload_table(proj_g, colors, leaves[3])
+    plain = list(torch.autograd.grad(table, leaves, grad_outputs=d_table,
+                                     allow_unused=True, retain_graph=True))
+    plain = [torch.zeros_like(l) if g is None else g
+             for g, l in zip(plain, leaves)]
+    with torch.no_grad():
+        t_img = _tiles_to_image(color, trans, gx, gy, w, h, cfg.tile_wh)[1]
+        plain.append(t_img.sum().expand(3).clone())  # dL/dbg = sum T
+        for name, g, p in zip(names, grads, plain):
+            check_fields("phase5", "gradient", g.reshape(-1, 1),
+                         p.reshape(-1, 1), [name])
+        for name, g32, g16 in zip(names, grads, grads16):
+            rel = float((g32 - g16).abs().max() / (g32.abs().max() + 1e-30))
+            log(f"phase5: grad {name} bf16 reduce vs f32: max|d|/max {rel:.2e}")
+            check(rel <= 2e-2, f"phase5: bf16 reduce gradient of {name} "
+                               f"is {rel:.2e} off the f32 one")
+
+    # times of the kernels and their plain versions at the frame's shapes
+    reps = 5
+    ranges = (binned.tile_starts, binned.tile_counts)
+    with torch.no_grad():
+        b2_ms = cuda_ms(lambda: rasterize_backward(
+            payload, *ranges, residual, gx, w, h, cfg), reps)
+        key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
+                          torch.full_like(binned.entry_gid, n))
+        (sorted_key, perm), sort_ms = timed_once(
+            lambda: torch.sort(key, stable=True))
+        rows, gather_ms = timed_once(lambda: dk[:, perm])
+        rows_t = rows.t()
+        n_valid = int((sorted_key < n).sum())
+        seg = {}
+        for dtype in ("f32", "bf16"):
+            ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
+                                                    dtype), reps)
+            plain_ms = cuda_ms(lambda: segment_sum_reference(
+                sorted_key, rows_t, n, dtype), reps)
+            lib_rows = torch.where((sorted_key < n)[:, None],
+                                   rows_t if dtype == "f32" else
+                                   rows_t.to(torch.bfloat16).float(), 0.0)
+            key64 = sorted_key.to(torch.int64)
+            acc = torch.zeros((n + 1, 9), device=dev)
+            lib_ms = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
+            seg[dtype] = (ms, plain_ms, lib_ms)
+        d_table_k = segment_sum_kernel(sorted_key, rows_t, n, "f32")
+    _, vjp_ms = timed_once(lambda: torch.autograd.grad(
+        table, leaves, grad_outputs=d_table_k, allow_unused=True))
+
+    # the differentiable frame: median of 5 chained reps (rep i's bg hangs
+    # on rep i-1's loss, bench.py:133-140)
+    with torch.no_grad():
+        _, fwd_ms = timed_once(lambda: render_aux(*leaves, cam, cfg=cfg))
+    torch.cuda.reset_peak_memory_stats()
+    val = loss
+    fwd_bwd(leaves, bg, cam, cfg)  # warm-up
+    frames = []
+    for _ in range(5):
+        bg_i = (bg.detach() + val * 1e-20).requires_grad_(True)
+        (val, _g, _a), ms = timed_once(lambda: fwd_bwd(leaves, bg_i, cam, cfg))
+        frames.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frame_ms = statistics.median(frames)
+    log(f"phase5: fwd+bwd frame median of 5 = {frame_ms:.3f} ms (all: "
+        f"{' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
+    log(f"phase5 stages (ms): forward frame {fwd_ms:.3f}; backward blend "
+        f"kernel {b2_ms:.3f}; sort {sort_ms:.3f}; row gather {gather_ms:.3f}; "
+        f"segment-sum kernel f32 {seg['f32'][0]:.3f} bf16 {seg['bf16'][0]:.3f}; "
+        f"projection+SH VJP {vjp_ms:.3f}")
+    log(f"phase5: backward blend {b2_ms:.3f} ms vs plain {b2_plain:.3f} ms; "
+        f"segment-sum f32 {seg['f32'][0]:.3f} ms (plain {seg['f32'][1]:.3f}, "
+        f"index_add_ {seg['f32'][2]:.3f}); bf16 {seg['bf16'][0]:.3f} ms "
+        f"(plain {seg['bf16'][1]:.3f}, index_add_ {seg['bf16'][2]:.3f}); "
+        f"rows summed {n_valid} of {key.shape[0]}")
+
+    # five training steps from a perturbed start towards the scene's render
+    with torch.no_grad():
+        target = render_aux(*scene.render_args(), cam, cfg=cfg)[0]
+    start = scene.to_params()
+    start = start._replace(opacity_logits=start.opacity_logits - 1.0)
+    tc = TrainConfig(lr_opacity=0.1)
+    state, opt = init_train_state(start, tc)
+    step = make_train_step(opt, w, h, cfg=cfg, tc=tc)
+    view = cam.to_view(dev)
+    n_steps = 5
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, step_loss, step_aux = step(state, view, target)
+        losses.append(float(step_loss))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(not bool(step_aux.overflow), "phase5 training: overflow")
+    check_launches("phase5 training", read_launches(),
+                   {**{k: n_steps for k in one}, "segsum_f32": n_steps,
+                    "segsum_bf16": 0})
+    log(f"phase5 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
+        f"ms per step median {statistics.median(step_ms):.3f} (all: "
+        f"{' '.join(f'{v:.3f}' for v in step_ms)})")
+    check(all(map(math.isfinite, losses)), "phase5 training: non-finite loss")
+    check(losses[-1] < losses[0], "phase5 training: the loss did not fall")
+
+    # bounds from this run's inputs
+    nt = gx * gy
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    evaluated, applied = ctx["pairs"]
+    # the payload slots in range read, their gradients written
+    b2_bytes = ctx["used"] * 9 * 4 * 2 + nt * pix * 32 + nt * 8
+    b2_bound = bound(b2_bytes, evaluated * OPS_PER_PAIR
+                     + applied * OPS_PER_APPLIED["backward"])
+    seg_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
+    record = [
+        {"name": "rasterize_backward", "route": "cuda",
+         "source": f"{PKG}/rasterize_backward.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
+         "launches": launches["rasterize_backward"], "max_abs_err": b2_abs,
+         "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound[0],
+         "bound_by": b2_bound[1], "library_ms": None},
+    ]
+    # each variant's count from the frame that runs it
+    for dtype, line, counts in (("f32", 46, launches),
+                                ("bf16", 129, launches16)):
+        ms, plain_ms, lib_ms = seg[dtype]
+        record.append(
+            {"name": f"segment_sum_{dtype}", "route": "cuda",
+             "source": f"{PKG}/segsum.cu",
+             "replaces": f"{JAX_OPS}/segsum.py:{line}",
+             "launches": counts[f"segsum_{dtype}"],
+             "max_abs_err": st[dtype][2], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": seg_bound[0], "bound_by": seg_bound[1],
+             "library_ms": lib_ms})
+    return record
 
 
 def main():
@@ -350,13 +825,15 @@ def main():
         card = phase0()
         phase1(dev)
         phase2()
-        record = phase3(dev)
+        record, ctx = phase3(dev)
+        phase4(dev)
+        record += phase5(dev, ctx)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
-    print(json.dumps(record))
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,14 +2,18 @@
 splatting package ``luisacomputegaussiansplatting_tpu``.
 
 Same layout and public names as the JAX package; plain torch around
-hand-written CUDA kernels (``csrc/``) for the expansion and the forward
-blend, each with a plain PyTorch version that CPU tensors take. This
-package imports neither jax nor the JAX package.
+hand-written CUDA kernels (``csrc/``) for the expansion, the forward and
+backward blends and the gradient segment-sum, each with a plain PyTorch
+version that CPU tensors take. This package imports neither jax nor the
+JAX package.
 
 Public API::
 
     from luisacomputegaussiansplatting_tpu_torch import (
         Camera, RenderConfig, GaussianScene, render, render_aux, load_ply,
+    )
+    from luisacomputegaussiansplatting_tpu_torch.models import (
+        TrainConfig, init_train_state, make_train_step,
     )
 """
 

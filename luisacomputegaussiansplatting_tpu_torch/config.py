@@ -13,8 +13,11 @@ Fields that pick a TPU-only mechanism are kept for parity and read as:
   ``expansion="xla"`` select the plain version on every device; they are
   debug knobs and never a default.
 - ``interpret``: ignored (there is no interpret mode for a CUDA kernel).
-- ``grad_reduce_dtype`` / ``grad_reduce_method``: accepted; they only steer
-  the backward reduction, which this package does not run yet.
+- ``grad_reduce_dtype``: the backward's per-gaussian reduction of the
+  payload gradients (``ops/segsum.py``) adds f32 rows, or rows rounded to
+  bf16 with "bf16"; the sums are f32 either way.
+- ``grad_reduce_method``: accepted and checked; "ride" and "rowgather" only
+  choose how ``lax.sort`` moves operands on a TPU, so both run one path.
 """
 
 from __future__ import annotations

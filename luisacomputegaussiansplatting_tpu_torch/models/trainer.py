@@ -1,0 +1,146 @@
+"""Single-view training step (port of ``models/trainer.py``).
+
+The graphdeco recipe: Adam with a learning rate per parameter group, the
+photometric (1 - w) L1 + w D-SSIM loss, activations applied inside the step
+(the raw parameters are what Adam updates). The optimizer is
+``torch.optim.Adam`` with one parameter group per ``GaussianParams`` field;
+the means group's learning rate follows optax's ``exponential_decay`` and is
+set from :func:`means_lr` before every update, at the count of updates made
+so far, which is when optax evaluates it.
+
+Parameters are updated in place: the ``GaussianParams`` of a ``TrainState``
+are leaf tensors that Adam steps, and a step returns the same tensors. The
+Adam moments live in the optimizer (the JAX package's ``opt_state``), which
+:func:`init_train_state` returns beside the state and
+:func:`make_train_step` takes, as the JAX package passes ``opt``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..config import RenderConfig
+from ..ops.render import render_view
+from ..utils.camera import CameraView
+from .gaussians import GaussianParams
+from .losses import d_ssim_l1_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Learning rates per parameter group (graphdeco defaults).
+
+    The means learning rate decays exponentially from lr_means to
+    lr_means_final over lr_means_decay_steps (graphdeco's
+    get_expon_lr_func), both endpoints multiplied by spatial_lr_scale (the
+    scene extent). lr_means_decay_steps=0 keeps it constant.
+    """
+
+    lr_means: float = 1.6e-4
+    lr_means_final: float = 1.6e-6
+    lr_means_decay_steps: int = 30_000
+    spatial_lr_scale: float = 1.0
+    lr_scales: float = 5e-3
+    lr_quats: float = 1e-3
+    lr_opacity: float = 5e-2
+    lr_sh_dc: float = 2.5e-3
+    lr_sh_rest: float = 2.5e-3 / 20.0
+    ssim_weight: float = 0.2
+    adam_eps: float = 1e-15
+
+
+def means_lr(tc: TrainConfig, count: int) -> float:
+    """The means learning rate after ``count`` updates: optax's
+    ``exponential_decay(init=lr_means*s, transition_steps, decay_rate=
+    final/init, end_value=lr_means_final*s)``, s = spatial_lr_scale."""
+    init = tc.lr_means * tc.spatial_lr_scale
+    if tc.lr_means_decay_steps <= 0 or count <= 0:
+        return init
+    rate = tc.lr_means_final / tc.lr_means
+    value = init * rate ** (count / tc.lr_means_decay_steps)
+    end = tc.lr_means_final * tc.spatial_lr_scale
+    # end_value bounds the decay from below (above, for a rate > 1)
+    return max(value, end) if rate < 1.0 else min(value, end)
+
+
+def _group_lrs(tc: TrainConfig) -> dict:
+    return {
+        "means": means_lr(tc, 0),
+        "log_scales": tc.lr_scales,
+        "quats": tc.lr_quats,
+        "opacity_logits": tc.lr_opacity,
+        "sh_dc": tc.lr_sh_dc,
+        "sh_rest": tc.lr_sh_rest,
+    }
+
+
+def make_optimizer(params: GaussianParams,
+                   tc: TrainConfig = TrainConfig()) -> torch.optim.Adam:
+    """Adam over the six groups of ``params`` (leaf tensors that require
+    grad), one learning rate each, eps ``tc.adam_eps``."""
+    lrs = _group_lrs(tc)
+    return torch.optim.Adam(
+        [{"params": [getattr(params, name)], "lr": lrs[name], "name": name}
+         for name in GaussianParams._fields],
+        betas=(0.9, 0.999), eps=tc.adam_eps,
+    )
+
+
+def optimizer_step(opt: torch.optim.Adam, tc: TrainConfig, count: int):
+    """One Adam update from the gradients in ``.grad``, after ``count``
+    earlier updates (which sets the means learning rate)."""
+    for group in opt.param_groups:
+        if group["name"] == "means":
+            group["lr"] = means_lr(tc, count)
+    opt.step()
+
+
+class TrainState(NamedTuple):
+    params: GaussianParams  # leaf tensors, updated in place
+    step: int  # updates made so far
+
+
+def init_train_state(params: GaussianParams, tc: TrainConfig = TrainConfig()):
+    """Copy ``params`` into fresh leaf tensors; returns (state, the Adam
+    optimizer over them)."""
+    leaves = GaussianParams(
+        *(p.detach().clone().requires_grad_(True) for p in params))
+    return TrainState(params=leaves, step=0), make_optimizer(leaves, tc)
+
+
+def photometric_loss(params: GaussianParams, cam_view: CameraView, target,
+                     width: int, height: int, bg_color, cfg: RenderConfig,
+                     sh_degree: int, ssim_weight: float):
+    """(loss, (image, RenderAux)) of the activated ``params`` against the
+    (3, H, W) ``target``."""
+    scene = params.activate()
+    img, aux = render_view(
+        scene.means, scene.scales, scene.quats, scene.opacities, scene.sh,
+        cam_view, width, height, bg_color, cfg, sh_degree,
+    )
+    return d_ssim_l1_loss(img, target, ssim_weight), (img, aux)
+
+
+def make_train_step(opt: torch.optim.Adam, width: int, height: int,
+                    cfg: RenderConfig = RenderConfig(), sh_degree: int = 3,
+                    tc: TrainConfig = TrainConfig(),
+                    bg_color=(0.0, 0.0, 0.0)):
+    """Single-view step: (state, cam_view, target) -> (state, loss, aux);
+    ``loss`` is a detached 0-d tensor. ``opt`` is the optimizer that
+    :func:`init_train_state` made over ``state.params``."""
+
+    def step(state: TrainState, cam_view: CameraView, target):
+        loss, (_img, aux) = photometric_loss(
+            state.params, cam_view, target, width, height, bg_color, cfg,
+            sh_degree, tc.ssim_weight,
+        )
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer_step(opt, tc, state.step)
+        return (TrainState(state.params, state.step + 1),
+                loss.detach(), aux)
+
+    return step

@@ -1,11 +1,12 @@
-"""Tile rasterizer with the hand-written CUDA kernel (counterpart of
-``ops/rasterize_pallas.py``), forward only.
+"""Tile rasterizer with hand-written CUDA kernels (counterpart of
+``ops/rasterize_pallas.py``): the forward blend (``csrc/rasterize.cu``) and
+the backward blend (``csrc/rasterize_backward.cu``).
 
-``rasterize_forward`` launches ``csrc/rasterize.cu`` for CUDA tensors and
-runs the plain version (``rasterize_ref.rasterize_reference``) for CPU
-tensors. ``rasterize_tiles`` wraps it in an autograd Function whose backward
-raises: the backward blend kernel is not ported yet, and a silent zero
-gradient would be worse than an error.
+For CUDA tensors ``rasterize_forward`` and ``rasterize_backward`` launch
+their kernels; CPU tensors run the plain versions of ``rasterize_ref``.
+``rasterize_tiles`` is the autograd Function of the pair: its backward turns
+the cotangents into the residual [dL/dC, dL/dT, C_final, T_final] and
+returns the per-entry payload gradient.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from .._build import KernelLib, require_cuda_tensors
 from ..config import RenderConfig
-from .rasterize_ref import FIELDS, rasterize_reference
+from .rasterize_ref import FIELDS, rasterize_backward_reference, rasterize_reference
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -27,8 +28,41 @@ KERNEL = KernelLib("rasterize", {
     ),
 })
 
+BACKWARD_KERNEL = KernelLib("rasterize_backward", {
+    "rasterize_backward_launch": (
+        ctypes.c_int,
+        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _p, _p],
+    ),
+})
+
 #: one thread per pixel of a tile, one block per tile
 MAX_TILE_PIXELS = 1024
+
+
+def _check_launch_args(fn: str, payload, tile_starts, tile_counts,
+                       cfg: RenderConfig):
+    """Validate the kernels' common arguments; returns (tile_w, tile_h)."""
+    tw, th = cfg.tile_wh
+    if tw * th > MAX_TILE_PIXELS:
+        raise ValueError(f"tile {tw}x{th} has more than {MAX_TILE_PIXELS} pixels")
+    num_tiles = tile_starts.shape[0]
+    require_cuda_tensors(fn, payload, tile_starts, tile_counts)
+    if payload.dtype != torch.float32 or payload.dim() != 2 \
+            or payload.shape[0] != FIELDS:
+        raise ValueError(
+            f"payload must be ({FIELDS}, capacity) float32, got "
+            f"{tuple(payload.shape)} {payload.dtype}")
+    for name, t in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
+        if t.dtype != torch.int32 or t.shape != (num_tiles,):
+            raise ValueError(f"{name} must be ({num_tiles},) int32")
+    return tw, th
+
+
+def _require_vpu(cfg: RenderConfig):
+    if cfg.blend_quad != "vpu":
+        raise NotImplementedError(
+            f"blend_quad={cfg.blend_quad!r} is not yet ported; use 'vpu'"
+        )
 
 
 def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
@@ -41,28 +75,14 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
     pix = tile_w * tile_h; T is the value after the last applied entry and
     0 for pixels past the image edge.
     """
-    if cfg.blend_quad != "vpu":
-        raise NotImplementedError(
-            f"blend_quad={cfg.blend_quad!r} is not yet ported; use 'vpu'"
-        )
+    _require_vpu(cfg)
     if payload.device.type == "cpu":
         return rasterize_reference(payload, tile_starts, tile_counts, grid_x,
                                    width, height, cfg)
-    tw, th = cfg.tile_wh
+    tw, th = _check_launch_args("rasterize_forward", payload, tile_starts,
+                                tile_counts, cfg)
     pix = tw * th
-    if pix > MAX_TILE_PIXELS:
-        raise ValueError(f"tile {tw}x{th} has more than {MAX_TILE_PIXELS} pixels")
     num_tiles = tile_starts.shape[0]
-    require_cuda_tensors("rasterize_forward", payload, tile_starts, tile_counts)
-    if payload.dtype != torch.float32 or payload.dim() != 2 \
-            or payload.shape[0] != FIELDS:
-        raise ValueError(
-            f"payload must be ({FIELDS}, capacity) float32, got "
-            f"{tuple(payload.shape)} {payload.dtype}")
-    for name, t in (("tile_starts", tile_starts), ("tile_counts", tile_counts)):
-        if t.dtype != torch.int32 or t.shape != (num_tiles,):
-            raise ValueError(f"{name} must be ({num_tiles},) int32")
-
     dev = payload.device
     color = torch.empty((num_tiles, pix, 3), dtype=torch.float32, device=dev)
     trans = torch.empty((num_tiles, pix, 1), dtype=torch.float32, device=dev)
@@ -82,24 +102,88 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
     return color, trans
 
 
+def rasterize_backward(payload, tile_starts, tile_counts, residual,
+                       grid_x: int, width: int, height: int,
+                       cfg: RenderConfig):
+    """Per-entry gradients of the payload fields.
+
+    Args:
+      residual: (num_tiles, tile_w*tile_h, 8) float32 per pixel: [dL/dC rgb,
+        dL/dT, C_final rgb, T_final].
+
+    Returns (9, capacity) float32, laid out as the payload. Entries in a
+    tile's range that were clamped at alpha_max, not applied or behind a
+    pixel's stop, and chunk padding, get zeros. Slots outside every range
+    hold garbage on CUDA (the plain version zeros them), as in the JAX
+    package: callers drop entries with gid < 0, which get no gradient.
+    """
+    _require_vpu(cfg)
+    if payload.device.type == "cpu":
+        return rasterize_backward_reference(payload, tile_starts, tile_counts,
+                                            residual, grid_x, width, height,
+                                            cfg)
+    tw, th = _check_launch_args("rasterize_backward", payload, tile_starts,
+                                tile_counts, cfg)
+    pix = tw * th
+    num_tiles = tile_starts.shape[0]
+    if pix % 32:
+        raise ValueError(f"tile {tw}x{th}: the backward kernel needs a "
+                         "multiple of 32 pixels")
+    require_cuda_tensors("rasterize_backward", payload, residual)
+    if residual.dtype != torch.float32 or residual.shape != (num_tiles, pix, 8):
+        raise ValueError(f"residual must be ({num_tiles}, {pix}, 8) float32")
+    dev = payload.device
+    grads = torch.empty_like(payload)
+    if num_tiles == 0:
+        return grads.zero_()
+    lib = BACKWARD_KERNEL.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rasterize_backward_launch(
+            payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
+            tile_counts.data_ptr(), residual.data_ptr(), num_tiles, grid_x,
+            width, height, tw, th, cfg.alpha_max, cfg.alpha_min,
+            cfg.transmittance_eps, grads.data_ptr(), stream,
+        )
+    BACKWARD_KERNEL.check(err, "rasterize_backward_launch")
+    BACKWARD_KERNEL.launches += 1
+    return grads
+
+
+def make_residual(d_color, d_trans, color, trans):
+    """(num_tiles, pix, 8) [dL/dC, dL/dT, C_final, T_final]; a missing
+    cotangent (None) is zero."""
+    if d_color is None:
+        d_color = torch.zeros_like(color)
+    if d_trans is None:
+        d_trans = torch.zeros_like(trans)
+    return torch.cat([d_color, d_trans, color, trans], dim=2).contiguous()
+
+
 class _RasterizeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, payload, tile_starts, tile_counts, grid_x, width, height,
                 cfg):
-        return rasterize_forward(payload, tile_starts, tile_counts, grid_x,
-                                 width, height, cfg)
+        color, trans = rasterize_forward(payload, tile_starts, tile_counts,
+                                         grid_x, width, height, cfg)
+        ctx.save_for_backward(payload, tile_starts, tile_counts, color, trans)
+        ctx.args = (grid_x, width, height, cfg)
+        return color, trans
 
     @staticmethod
     def backward(ctx, d_color, d_trans):
-        raise NotImplementedError(
-            "rasterize_tiles has no backward yet: the backward blend kernel "
-            "(ROADMAP.md queue B, item 2) is not ported"
-        )
+        payload, tile_starts, tile_counts, color, trans = ctx.saved_tensors
+        residual = make_residual(d_color, d_trans, color, trans)
+        d_payload = rasterize_backward(payload, tile_starts, tile_counts,
+                                       residual, *ctx.args)
+        return d_payload, None, None, None, None, None, None
 
 
 def rasterize_tiles(payload, tile_starts, tile_counts, grid_x: int,
                     width: int, height: int, cfg: RenderConfig):
-    """Tile rasterization as an autograd Function (forward only for now).
+    """Differentiable tile rasterization; gradients flow to ``payload`` only
+    (the ranges are structural), and only its slots inside a tile's range
+    get a defined one (see :func:`rasterize_backward`).
 
     Returns (color (num_tiles, pix, 3), transmittance (num_tiles, pix, 1)).
     """

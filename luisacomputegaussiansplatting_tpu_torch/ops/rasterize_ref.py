@@ -1,4 +1,6 @@
-"""The plain PyTorch rasterizer (port of ``ops/rasterize_ref.py``).
+"""The plain PyTorch rasterizer, forward and backward (port of
+``ops/rasterize_ref.py``; the backward is the plain version of the backward
+blend kernel).
 
 Blend rules of the reference (lcgs/src/gs_tile_splatter/shader.cpp:249-274):
 alpha = min(alpha_max, op * exp(power)); an entry is skipped when power > 0
@@ -16,6 +18,8 @@ The scan runs per tile, sequentially along the entries.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -41,14 +45,30 @@ def tile_pixel_coords(tiles, grid_x: int, width: int, height: int,
     return ix.to(torch.float32), iy.to(torch.float32), t0
 
 
-def _blend_batch(payload, starts, counts, px, py, t0, cfg: RenderConfig):
-    """Blend a batch of B tiles: payload (9, capacity), starts/counts (B,)
-    int64 on the device, pixel coords (B, pix). Returns ((B, pix, 3) colour,
-    (B, pix) transmittance)."""
+class _Replay(NamedTuple):
+    """The forward blend of a batch of B tiles over its n longest range, as
+    (B, n) and (B, n, pix) tensors."""
+
+    f: torch.Tensor  # (9, B, n) payload fields of the entries
+    in_range: torch.Tensor  # (B, n) entry inside its tile's range
+    idx: torch.Tensor  # (B, n) entry's payload slot (0 outside the range)
+    dx: torch.Tensor  # (B, n, pix) mean x - pixel x
+    dy: torch.Tensor
+    g: torch.Tensor  # exp(power) where power <= 0
+    raw: torch.Tensor  # opacity * g, before the alpha_max clamp
+    alpha: torch.Tensor  # 0 where not live
+    live: torch.Tensor  # power <= 0, alpha >= alpha_min, in range
+    t_after: torch.Tensor  # transmittance after the entry
+    t_before: torch.Tensor
+    applied: torch.Tensor  # live and not past the pixel's stop
+    w: torch.Tensor  # blend weight t_before * alpha where applied
+
+
+def replay(payload, starts, counts, px, py, t0, cfg: RenderConfig):
+    """Replay the blend of a batch of tiles: payload (9, capacity),
+    starts/counts (B,) int64, pixel coordinates and initial T (B, pix).
+    Differentiable; the backward and the kernels' pair counts read it too."""
     n = int(counts.max()) if counts.numel() else 0
-    b, pix = px.shape
-    if n == 0:
-        return px.new_zeros((b, pix, 3)), t0.clone()
     j = torch.arange(n, device=payload.device)
     in_range = j[None, :] < counts[:, None]  # (B, n)
     idx = torch.where(in_range, starts[:, None] + j[None, :],
@@ -59,7 +79,10 @@ def _blend_batch(payload, starts, counts, px, py, t0, cfg: RenderConfig):
     dx = mx - px[:, None, :]  # (B, n, pix)
     dy = my - py[:, None, :]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    alpha = torch.clamp(op * torch.exp(power), max=cfg.alpha_max)
+    # power > 0 is never live; the clamp keeps exp (and its gradient) finite
+    g = torch.exp(torch.clamp(power, max=0.0))
+    raw = op * g
+    alpha = torch.clamp(raw, max=cfg.alpha_max)
     live = (power <= 0.0) & (alpha >= cfg.alpha_min) & in_range[:, :, None]
     alpha = torch.where(live, alpha, torch.zeros_like(alpha))
 
@@ -69,13 +92,43 @@ def _blend_batch(payload, starts, counts, px, py, t0, cfg: RenderConfig):
     t_before = t_after / (1.0 - alpha)
     applied = (t_after >= cfg.transmittance_eps) & (alpha > 0.0)
     w = torch.where(applied, t_before * alpha, torch.zeros_like(alpha))
+    return _Replay(f, in_range, idx, dx, dy, g, raw, alpha, live, t_after,
+                   t_before, applied, w)
 
+
+def _blend_batch(payload, starts, counts, px, py, t0, cfg: RenderConfig):
+    """Blend a batch of B tiles: payload (9, capacity), starts/counts (B,)
+    int64 on the device, pixel coords (B, pix). Returns ((B, pix, 3) colour,
+    (B, pix) transmittance)."""
+    b, pix = px.shape
+    if not counts.numel() or int(counts.max()) == 0:
+        return px.new_zeros((b, pix, 3)), t0.clone()
+    r = replay(payload, starts, counts, px, py, t0, cfg)
     color = torch.stack(
-        [torch.sum(w * f[6 + c][:, :, None], dim=1) for c in range(3)], dim=-1
+        [torch.sum(r.w * r.f[6 + c][:, :, None], dim=1) for c in range(3)],
+        dim=-1,
     )
     # the chain is monotone, so the last applied value is the minimum
-    t_fin = torch.where(applied, t_after, t0[:, None, :].expand_as(t_after))
+    t_fin = torch.where(r.applied, r.t_after,
+                        t0[:, None, :].expand_as(r.t_after))
     return color, torch.amin(t_fin, dim=1)
+
+
+def _tile_batches(tile_counts, pix: int, device, budget_share: int = 1):
+    """Tile indices in batches, longest ranges first (so each batch pads
+    little), each batch's (tiles x longest range x pixels) work tensor under
+    the element budget; one host read of the counts sizes the batches."""
+    counts = tile_counts.to(torch.int64)
+    num_tiles = counts.shape[0]
+    order = torch.argsort(counts, descending=True, stable=True)
+    counts_host = counts[order].cpu().tolist()
+    budget = BATCH_ELEMENTS.get(device.type, BATCH_ELEMENTS["cpu"]) // budget_share
+    done = 0
+    while done < num_tiles:
+        longest = max(counts_host[done], 1)
+        b = max(1, min(num_tiles - done, budget // (longest * pix)))
+        yield order[done:done + b]
+        done += b
 
 
 def rasterize_reference(payload, tile_starts, tile_counts, grid_x: int,
@@ -93,25 +146,78 @@ def rasterize_reference(payload, tile_starts, tile_counts, grid_x: int,
     dev = payload.device
     starts = tile_starts.to(torch.int64)
     counts = tile_counts.to(torch.int64)
-    # longest ranges first, so each batch pads little; one host read of
-    # the counts sizes the batches
-    order = torch.argsort(counts, descending=True, stable=True)
-    counts_host = counts[order].cpu().tolist()
-
-    budget = BATCH_ELEMENTS.get(dev.type, BATCH_ELEMENTS["cpu"])
-    colors, trans, done = [], [], 0
-    while done < num_tiles:
-        longest = max(counts_host[done], 1)
-        b = max(1, min(num_tiles - done, budget // (longest * pix)))
-        sel = order[done:done + b]
+    order, colors, trans = [], [], []
+    for sel in _tile_batches(tile_counts, pix, dev):
         px, py, t0 = tile_pixel_coords(sel, grid_x, width, height, tw, th)
         c, t = _blend_batch(payload, starts[sel], counts[sel], px, py, t0, cfg)
+        order.append(sel)
         colors.append(c)
         trans.append(t)
-        done += b
     color = torch.empty((num_tiles, pix, 3), dtype=torch.float32, device=dev)
     t_out = torch.empty((num_tiles, pix), dtype=torch.float32, device=dev)
     if num_tiles:
+        order = torch.cat(order)
         color = color.index_copy(0, order, torch.cat(colors))
         t_out = t_out.index_copy(0, order, torch.cat(trans))
     return color, t_out[:, :, None]
+
+
+def _backward_batch(payload, starts, counts, res, px, py, t0,
+                    cfg: RenderConfig):
+    """Per-entry gradients of a batch of B tiles: residual ``res`` (B, pix,
+    8) = [dL/dC rgb, dL/dT, C_final rgb, T_final]. Returns ((B, n, 9)
+    gradients, the replay)."""
+    r = replay(payload, starts, counts, px, py, t0, cfg)
+    ca, cb, cc = (r.f[i][:, :, None] for i in (2, 3, 4))
+    grad = res[:, None, :, 0:3]  # (B, 1, pix, 3) dL/dC
+    b = sum(r.f[6 + c][:, :, None] * grad[..., c] for c in range(3))
+    cg_total = (res[:, :, 4:7] * res[:, :, 0:3]).sum(-1)[:, None, :]
+    tail = (res[:, :, 7] * res[:, :, 3])[:, None, :]
+    # the TPU kernel's suffix identity: the entries behind j carry
+    # dot(C_final, G) - sum_{k<=j} w_k b_k
+    suffix = cg_total - torch.cumsum(r.w * b, dim=1)
+    d_alpha = r.t_before * b - (suffix + tail) / (1.0 - r.alpha)
+    d_alpha = torch.where(r.applied & (r.raw <= cfg.alpha_max), d_alpha,
+                          torch.zeros_like(d_alpha))
+    d_pow = d_alpha * r.alpha  # alpha = op * g where not clamped
+    dx, dy = r.dx, r.dy
+    out = torch.stack([
+        -(d_pow * (ca * dx + cb * dy)).sum(2),
+        -(d_pow * (cc * dy + cb * dx)).sum(2),
+        -0.5 * (d_pow * dx * dx).sum(2),
+        -(d_pow * dx * dy).sum(2),
+        -0.5 * (d_pow * dy * dy).sum(2),
+        (d_alpha * r.g).sum(2),
+        *(torch.einsum("bnp,bp->bn", r.w, res[:, :, c]) for c in range(3)),
+    ], dim=-1)
+    return out, r
+
+
+def rasterize_backward_reference(payload, tile_starts, tile_counts, residual,
+                                 grid_x: int, width: int, height: int,
+                                 cfg: RenderConfig):
+    """The plain backward blend: per-entry gradients (9, capacity) of the
+    payload fields from the per-pixel ``residual`` (num_tiles, pix, 8) =
+    [dL/dC rgb, dL/dT, C_final rgb, T_final].
+
+    The same tile batches as :func:`rasterize_reference`, with no autograd
+    graph (autograd through the forward would keep every (entry, pixel)
+    pair); only per-entry sums are kept. Entries that were clamped at
+    ``alpha_max``, not applied or past the pixel's stop get zero, and so do
+    slots outside every range.
+    """
+    tw, th = cfg.tile_wh
+    pix = tw * th
+    dev = payload.device
+    starts = tile_starts.to(torch.int64)
+    counts = tile_counts.to(torch.int64)
+    grads = torch.zeros((FIELDS, payload.shape[1]), dtype=torch.float32,
+                        device=dev)
+    with torch.no_grad():
+        # about twice the forward's live tensors per batch: half the budget
+        for sel in _tile_batches(tile_counts, pix, dev, budget_share=2):
+            px, py, t0 = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+            g, r = _backward_batch(payload, starts[sel], counts[sel],
+                                   residual[sel], px, py, t0, cfg)
+            grads[:, r.idx[r.in_range]] = g[r.in_range].t()
+    return grads

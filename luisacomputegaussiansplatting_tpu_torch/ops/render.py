@@ -1,11 +1,14 @@
 """End-to-end render of one view (port of ``ops/render.py``).
 
 The reference's per-frame path (app/main.cpp:266-308: SHProcessor,
-GSProjector, GSTileSplatter) as plain torch stages around two CUDA kernels:
+GSProjector, GSTileSplatter) as plain torch stages around the CUDA kernels:
 SH colours -> projection and tile rects -> expansion (kernel) -> sort and
 ranges -> payload gather -> forward blend (kernel) -> image and background.
-Capacities are static, as in the JAX package, and overflow is reported
-rather than resized, so both packages produce the same entry streams.
+Under autograd the backward runs the backward blend (kernel), the
+segment-sum of the payload gradients per gaussian (kernel), then torch's own
+VJPs of projection and SH. Capacities are static, as in the JAX package, and
+overflow is reported rather than resized, so both packages produce the same
+entry streams.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from .binning import bin_gaussians, bin_gaussians_nopack
 from .projection import ProjectedGaussians, _tile_wh, project_gaussians, tile_grid
 from .rasterize import rasterize_tiles
 from .rasterize_ref import FIELDS, rasterize_reference
+from .segsum import reduce_fields_by_id
 from .sh_eval import compute_colors
 
 
@@ -52,28 +56,59 @@ def payload_table(proj: ProjectedGaussians, colors, opacities):
     return table
 
 
-def gather_payload(table, entry_gid, payload_dtype: str = "f32"):
+class _GatherPayload(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, entry_gid, payload_dtype, reduce_dtype,
+                reduce_method):
+        if payload_dtype not in ("f32", "bf16"):
+            raise ValueError(f"unknown payload_dtype: {payload_dtype!r}")
+        valid = entry_gid >= 0
+        rows = table[torch.clamp(entry_gid, min=0).to(torch.int64)]
+        if payload_dtype == "bf16":
+            rows = torch.cat(
+                [rows[:, :5],
+                 rows[:, 5:].to(torch.bfloat16).to(torch.float32)],
+                dim=1,
+            )
+        rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+        ctx.save_for_backward(entry_gid)
+        ctx.n_rows = table.shape[0]
+        ctx.reduce = (reduce_dtype, reduce_method)
+        return rows.t().contiguous()
+
+    @staticmethod
+    def backward(ctx, d_payload):
+        (entry_gid,) = ctx.saved_tensors
+        d_table = reduce_fields_by_id(entry_gid, d_payload.contiguous(),
+                                      ctx.n_rows, *ctx.reduce)
+        return d_table, None, None, None, None
+
+
+def gather_payload(table, entry_gid, payload_dtype: str = "f32",
+                   reduce_dtype: str = "f32", reduce_method: str = "ride"):
     """(N, 9) table + (capacity,) gids -> (9, capacity) field-major payload;
     padding slots (gid < 0) are all zero. With ``payload_dtype="bf16"``
     opacity and rgb are rounded to bf16 values (round to nearest even), the
-    rounding the JAX package's packed gather applies."""
-    if payload_dtype not in ("f32", "bf16"):
-        raise ValueError(f"unknown payload_dtype: {payload_dtype!r}")
-    valid = entry_gid >= 0
-    rows = table[torch.clamp(entry_gid, min=0).to(torch.int64)]
-    if payload_dtype == "bf16":
-        rows = torch.cat(
-            [rows[:, :5], rows[:, 5:].to(torch.bfloat16).to(torch.float32)],
-            dim=1,
-        )
-    rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
-    return rows.t().contiguous()
+    rounding the JAX package's packed gather applies.
+
+    The backward sums the per-entry payload gradients per gaussian with the
+    segment-sum (``ops/segsum.py``; padding slots are dropped, never added
+    into gaussian 0). As in the JAX package's custom VJP, the bf16 rounding
+    passes the gradient through unrounded; ``reduce_dtype="bf16"`` rounds
+    it inside the reduction instead.
+    """
+    return _GatherPayload.apply(table, entry_gid, payload_dtype,
+                                reduce_dtype, reduce_method)
 
 
-def build_payload(proj, colors, opacities, binned, payload_dtype="f32"):
-    """The (9, capacity) payload of a binning result (differentiable)."""
+def build_payload(proj, colors, opacities, binned, reduce_dtype="f32",
+                  payload_dtype="f32", reduce_method="ride"):
+    """The (9, capacity) payload of a binning result (differentiable); the
+    arguments after ``binned`` are those of the JAX package's
+    ``build_payload``."""
     table = payload_table(proj, colors, opacities)
-    return gather_payload(table, binned.entry_gid, payload_dtype)
+    return gather_payload(table, binned.entry_gid, payload_dtype,
+                          reduce_dtype, reduce_method)
 
 
 def _tiles_to_image(color, trans, grid_x: int, grid_y: int, width: int,
@@ -116,7 +151,9 @@ def render_view(means3d, scales, quats_xyzw, opacities, sh_coeffs,
     binned = binner(proj, grid_x, grid_y, cfg.max_pairs, cull_op, cfg.tile_wh,
                     cfg.alpha_min, cfg.expansion, cfg.max_pairs_sorted,
                     cfg.interpret, cfg.sort_mode)
-    payload = build_payload(proj, colors, opacities, binned, cfg.payload_dtype)
+    payload = build_payload(proj, colors, opacities, binned,
+                            cfg.grad_reduce_dtype, cfg.payload_dtype,
+                            cfg.grad_reduce_method)
 
     if cfg.rasterizer == "pallas":
         color, trans = rasterize_tiles(payload, binned.tile_starts,

@@ -1,0 +1,165 @@
+"""PyTorch port: the backward blend against the JAX package's Pallas backward
+kernel (interpret mode) on the same payloads, ranges and residuals.
+
+The port's ``rasterize_backward`` takes its plain version on the CPU
+(``rasterize_backward_reference``); it is held to the JAX ``d_payload``
+field by field, on the entries that hold a gaussian, within 1e-4 x the
+field's max |d_payload| (the JAX kernel sums prefixes and pixel moments on
+the MXU, the port per pixel and entry: the results are equal up to
+rounding). The saturated-wall scene of ``tests/test_grads.py`` is held at
+that test's 2e-3.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from luisacomputegaussiansplatting_tpu import config as jcfg
+from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene as jrandom_scene
+from luisacomputegaussiansplatting_tpu.ops import rasterize_pallas as jrp
+from luisacomputegaussiansplatting_tpu.ops.binning import bin_gaussians, bin_gaussians_nopack
+from luisacomputegaussiansplatting_tpu.ops.projection import project_gaussians, tile_grid
+from luisacomputegaussiansplatting_tpu.ops.render import build_payload, render as jrender
+from luisacomputegaussiansplatting_tpu.ops.sh_eval import compute_colors
+from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera as jlook
+from luisacomputegaussiansplatting_tpu_torch import config as pcfg
+from luisacomputegaussiansplatting_tpu_torch.ops import rasterize as pr
+from luisacomputegaussiansplatting_tpu_torch.ops.render import render
+from luisacomputegaussiansplatting_tpu_torch.utils.camera import look_at_camera
+
+torch.set_num_threads(2)
+
+TOL = 1e-4
+CAM = ((3.0, -2.5, 2.0), (0, 0, 0), (0, 0, 1))
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def jax_backward_case(scene, w, h, cfg, seed):
+    """The JAX pipeline's payload, ranges and entry gids, a residual of
+    normal cotangents (numpy, ``seed``) with the forward's own C and T, and
+    the JAX backward kernel's d_payload; all numpy."""
+    cam = jlook(*CAM, fov=70.0, width=w, height=h)
+    gx, gy = tile_grid(w, h, cfg.tile_wh)
+
+    def forward(m, s, q, o, sh):
+        colors = compute_colors(m, sh, cam.position, 3)
+        proj = project_gaussians(m, s, q, cam, cfg)
+        binner = bin_gaussians if cfg.pack_mode == "chunk" else bin_gaussians_nopack
+        binned = binner(proj, gx, gy, cfg.max_pairs, None, cfg.tile_wh)
+        payload = build_payload(proj, colors, o, binned)
+        out = jrp.rasterize_forward(payload, binned.tile_starts,
+                                    binned.tile_counts, gx, w, h, cfg)
+        return payload, binned.tile_starts, binned.tile_counts, \
+            binned.entry_gid, out[:, :, 0:3], out[:, :, 3:4]
+
+    payload, starts, counts, gid, color, trans = jax.jit(forward)(
+        *scene.render_args())
+    rng = np.random.default_rng(seed)
+    d_color = rng.normal(size=color.shape).astype(np.float32)
+    d_trans = rng.normal(size=trans.shape).astype(np.float32)
+    residual = np.concatenate([d_color, d_trans, np.asarray(color),
+                               np.asarray(trans)], axis=2)
+    d_payload = jrp.rasterize_backward(payload, starts, counts,
+                                       jnp.asarray(residual), gx, w, h, cfg)
+    return dict(payload=np.asarray(payload)[:9], starts=np.asarray(starts),
+                counts=np.asarray(counts), gid=np.asarray(gid),
+                residual=residual, d_payload=np.asarray(d_payload)[:9],
+                grid_x=gx, d_color=d_color, d_trans=d_trans)
+
+
+def assert_fields_close(port, want, keep, tol=TOL):
+    """Per field, over the entries in ``keep``: |diff| <= tol x max|want|."""
+    port, want = np.asarray(port)[:, keep], np.asarray(want)[:, keep]
+    assert np.isfinite(port).all()
+    for f in range(want.shape[0]):
+        scale = np.abs(want[f]).max() + 1e-30
+        np.testing.assert_allclose(port[f] / scale, want[f] / scale, atol=tol,
+                                   err_msg=f"field {f}")
+
+
+CASES = [
+    (16, None, "chunk"),
+    (16, None, "none"),
+    (32, None, "chunk"),
+    (32, 16, "none"),
+]
+
+
+@pytest.mark.parametrize("tile,tile_h,pack", CASES)
+def test_backward_matches_jax_kernel(tile, tile_h, pack):
+    kw = dict(max_pairs=10_000, tile=tile, tile_h=tile_h, pack_mode=pack)
+    case = jax_backward_case(jrandom_scene(40, seed=13), 48, 32,
+                             jcfg.RenderConfig(**kw), seed=tile + len(pack))
+    d = pr.rasterize_backward(
+        t(case["payload"]), t(case["starts"]), t(case["counts"]),
+        t(case["residual"]), case["grid_x"], 48, 32, pcfg.RenderConfig(**kw))
+    assert d.shape == case["payload"].shape
+    keep = case["gid"] >= 0
+    assert_fields_close(d, case["d_payload"], keep)
+    # every field received gradient, and no entry without a gaussian did
+    assert np.all(np.abs(case["d_payload"][:, keep]).max(axis=1) > 0)
+    assert torch.all(d[:, torch.from_numpy(~keep)] == 0)
+
+
+def test_rasterize_tiles_backward_takes_cotangents():
+    """The autograd Function builds the residual from the cotangents (a
+    non-contiguous one, and None for T) and returns the backward's
+    d_payload."""
+    kw = dict(max_pairs=10_000)
+    case = jax_backward_case(jrandom_scene(40, seed=13), 48, 32,
+                             jcfg.RenderConfig(**kw), seed=5)
+    cfg = pcfg.RenderConfig(**kw)
+    x = t(case["payload"]).requires_grad_()
+    color, trans = pr.rasterize_tiles(x, t(case["starts"]), t(case["counts"]),
+                                      case["grid_x"], 48, 32, cfg)
+    # a permuted view: the cotangent reaching the Function is not contiguous
+    d_color = t(case["d_color"]).permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    (color * d_color).sum().backward()
+    want = pr.rasterize_backward(
+        x.detach(), t(case["starts"]), t(case["counts"]),
+        pr.make_residual(t(case["d_color"]), None, color.detach(),
+                         trans.detach()),
+        case["grid_x"], 48, 32, cfg)
+    assert torch.equal(x.grad, want)
+
+
+def test_backward_early_exit_on_saturated_tile():
+    """An opaque wall saturates every tile well before its range ends: the
+    entries behind the stop get zero gradient. The port's gradients match
+    the JAX kernel path's (2e-3 scaled, as tests/test_grads.py)."""
+    scene = jrandom_scene(600, seed=1, extent=0.5, scale_range=(0.2, 0.4))
+    scene = scene._replace(opacities=np.full((600,), 0.85, np.float32))
+    args = [np.asarray(a) for a in scene.render_args()]
+    wimg = np.random.default_rng(2).normal(size=(3, 32, 32)).astype(np.float32)
+    eye = ((0, 0, -3.0), (0, 0, 0), (0, 1, 0))
+    jcam = jlook(*eye, fov=60.0, width=32, height=32)
+    cfg = jcfg.RenderConfig(max_pairs=16_000)
+    want = jax.jit(jax.grad(
+        lambda *a: jnp.sum(jrender(*a, jcam, cfg=cfg) * wimg),
+        argnums=(0, 3)))(*args)
+    leaves = [t(a).requires_grad_() for a in args]
+    img = render(*leaves, look_at_camera(*eye, fov=60.0, width=32, height=32),
+                 cfg=pcfg.RenderConfig(max_pairs=16_000))
+    (img * t(wimg)).sum().backward()
+    for a, b in zip((leaves[0].grad, leaves[3].grad), want):
+        a, b = a.numpy(), np.asarray(b)
+        assert np.isfinite(a).all()
+        scale = np.abs(b).max() + 1e-8
+        np.testing.assert_allclose(a / scale, b / scale, atol=2e-3)
+
+
+def test_backward_wrapper_rejects_unported_and_non_cpu():
+    payload = torch.zeros((9, 128))
+    z = torch.zeros(1, dtype=torch.int32)
+    res = torch.zeros((1, 256, 8))
+    with pytest.raises(NotImplementedError, match="mxu"):
+        pr.rasterize_backward(payload, z, z, res, 1, 16, 16,
+                              pcfg.RenderConfig(blend_quad="mxu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        pr.rasterize_backward(payload.to("meta"), z.to("meta"), z.to("meta"),
+                              res.to("meta"), 1, 16, 16, pcfg.RenderConfig())
