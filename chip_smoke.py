@@ -26,13 +26,33 @@ PyTorch version, and drives the port's render and training paths end to end:
      to all five gaussian groups and the background, in f32 and with the
      bf16 gradient reduction; stage by stage against the plain versions;
      the forward+backward frame timed over chained reps; then five training
-     steps with ``make_train_step``.
+     steps with ``make_train_step``;
+  6. the production slice: first phases 1 and 4 again with
+     ``blend_quad="mxu"``; then ``bench.py``'s headline configuration (tile 32,
+     no-pack, cull, trim, fused sort, bf16 payload and gradient reduction,
+     ``blend_quad="mxu"``) through ``bench_cuda.run_config``'s scene and
+     frame at 2M gaussians and 1920x1080: one forward + backward frame with
+     its launch counts (no vpu blend), the mxu blend kernels against their
+     plain versions on the frame's payload and residual, the five groups'
+     gradients against the all-plain backward, the mxu image against the
+     vpu image, the timed frames and five training steps; the north star
+     (6M gaussians) through ``run_config``; and one production frame under
+     ``torch.profiler`` (``utils/profiling.frame_profile``).
+
+Every phase runs, in order; to rehearse one, import this module and call
+its ``phaseN`` function.
 
 BLEND_TOL: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of the
 pixels (transmittance-stop flips), which stay <= 2e-2.
 GRAD_TOL (backward blend, and the five groups' gradients): |diff| <= 1e-4 x
 the field's max |plain|, except at most 1e-5 of the entries (stop flips),
 which stay <= 2e-2 x that max.
+MXU_VS_VPU (phase 6, the mxu image against the vpu image on one payload):
+BLEND_TOL, whose 5e-4 is the bound of tests/test_rasterize.py:384. The two
+modes evaluate alpha with rounding errors up to ~1e-4 relative, so a pair
+whose alpha lies that close to alpha_min or the stop is applied by one and
+not the other, which moves its pixel by ~alpha_min; at 2M gaussians and
+1920x1080, 3 pixels of 2,073,600 were over 5e-4 (20 allowed).
 SUM_TOL (segment-sum against index_add_, another summation order): |diff|
 <= 1e-5 x the column's max |sum|.
 
@@ -68,11 +88,13 @@ JAX_OPS = "luisacomputegaussiansplatting_tpu/ops"
 # published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations per (entry, pixel) pair, counted from the kernels: the
-# conic quadratic and its test for every evaluated pair; for an applied
-# pair the forward adds exp, log1p, exp, a division and the colour sums,
-# the backward also the nine gradient terms and their share of the shuffles
-OPS_PER_PAIR = 10
+# FP32 operations per (entry, pixel) pair, counted from the kernels: for
+# every evaluated pair the power and its test (vpu: the conic quadratic;
+# mxu: the pixel polynomial, 5 multiplies and 5 adds, and the guard test);
+# for an applied pair the forward adds exp, log1p, exp, a division and the
+# colour sums, the backward also the nine gradient terms and their share of
+# the shuffles
+OPS_PER_PAIR = {"vpu": 10, "mxu": 11}
 OPS_PER_APPLIED = {"forward": 15, "backward": 50}
 
 
@@ -92,18 +114,9 @@ def log(msg):
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
     timed with CUDA events on the current stream."""
-    import torch
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import Timer
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return Timer(warmup=1, reps=reps).time(fn) * 1e3
 
 
 def timed_once(fn):
@@ -136,27 +149,29 @@ def kernel_libs():
 
 
 def reset_launches():
-    from luisacomputegaussiansplatting_tpu_torch.ops import segsum
-
     for k in kernel_libs():
-        k.launches = 0
-    for dtype in segsum.LAUNCHES:
-        segsum.LAUNCHES[dtype] = 0
+        k.reset_launches()
 
 
 def read_launches():
-    """Launches per kernel since the last reset; the segment-sum per row
-    variant."""
-    from luisacomputegaussiansplatting_tpu_torch.ops import segsum
-
-    counts = {k.name: k.launches for k in kernel_libs()
-              if k is not segsum.KERNEL}
-    counts.update({f"segsum_{d}": n for d, n in segsum.LAUNCHES.items()})
+    """Launches per kernel since the last reset, per variant where the
+    kernel has variants: ``rasterize_vpu``/``rasterize_mxu``,
+    ``rasterize_backward_vpu``/``_mxu``, ``segsum_f32``/``_bf16``."""
+    counts = {}
+    for k in kernel_libs():
+        if k.variant_launches:
+            counts.update({f"{k.name}_{v}": n
+                           for v, n in k.variant_launches.items()})
+        else:
+            counts[k.name] = k.launches
     return counts
 
 
-def check_launches(tag, got, want):
-    """The launches of one path are exactly ``want``."""
+def check_launches(tag, got, **nonzero):
+    """The launches of one path are exactly ``nonzero`` and 0 for every
+    other kernel and variant."""
+    want = {k: nonzero.get(k, 0) for k in got}
+    check(set(nonzero) <= set(got), f"{tag}: unknown kernels {nonzero}")
     log(f"{tag}: launches {got}")
     check(got == want, f"{tag}: launches {got}, expected {want}")
 
@@ -275,15 +290,15 @@ def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg):
     evaluated = applied = 0
     with torch.no_grad():
         for sel in _tile_batches(tile_counts, tw * th, payload.device):
-            px, py, t0 = tile_pixel_coords(sel, grid_x, width, height, tw, th)
-            r = replay(payload, starts[sel], counts[sel], px, py, t0, cfg)
+            pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+            r = replay(payload, starts[sel], counts[sel], pixels, cfg)
             if r.t_after.shape[1] == 0:
                 continue
             ok = r.t_after >= cfg.transmittance_eps  # True until the stop
             real = (r.in_range & (r.f[5] > 0))[:, :, None]
             stopped = ~ok[:, -1, :]
             per_pixel = (ok & real).sum(1) + stopped.to(torch.int64)
-            evaluated += int((per_pixel * (t0 > 0)).sum())
+            evaluated += int((per_pixel * (pixels.t0 > 0)).sum())
             applied += int(r.applied.sum())
     return evaluated, applied
 
@@ -307,12 +322,17 @@ def phase0():
     for k in libs:
         built = "cached" if k.build_seconds is None else f"{k.build_seconds:.2f} s"
         log(f"kernel {k.name}: built ({built})")
+        # ptxas: registers, shared memory and spills of each kernel
+        for line in k.build_log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {k.name}: {line.strip()}")
     log(f"kernel build total: {time.perf_counter() - t0:.2f} s")
     return smi[0]
 
 
-def test_scenes(dev):
-    """Phase 1 and 4's settings: (tag, cfg, camera, scene)."""
+def test_scenes(dev, blend="vpu"):
+    """Phase 1 and 4's settings: (tag, cfg, camera, scene), in one blend
+    mode."""
     from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera, random_scene
 
     scene = random_scene(20_000, seed=1, device=dev)
@@ -324,41 +344,44 @@ def test_scenes(dev):
                 tag = f"tile={tile}x{tile_h or tile} pack={pack} cull={cull}"
                 cfg = RenderConfig(max_pairs=2_000_000, tile=tile,
                                    tile_h=tile_h, pack_mode=pack,
-                                   tile_cull=cull)
+                                   tile_cull=cull, blend_quad=blend)
                 yield tag, cfg, cam, scene
 
 
-def bin_and_payload(scene, cam, cfg, expansion="auto"):
-    """(proj, grid, binned, payload) of a scene (no autograd)."""
+def cull_opacity(scene, cfg):
+    """The opacity the tile cull reads (None without the cull), as
+    ``render_view`` passes it."""
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import _selection_opacity
+
+    return _selection_opacity(scene.opacities, cfg) if cfg.tile_cull else None
+
+
+def bin_and_payload(scene, cam, cfg, expansion=None):
+    """(proj, grid, binned, payload) of a scene (no autograd): the stages of
+    ``render_view`` at ``cfg`` (``render_stages``), with another expansion
+    where ``expansion`` names one."""
     import torch
 
-    from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, bin_gaussians_nopack
-    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
-    from luisacomputegaussiansplatting_tpu_torch.ops.render import build_payload
-    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_stages
 
+    if expansion is not None:
+        cfg = dataclasses.replace(cfg, expansion=expansion)
+    args = scene.render_args()
     with torch.no_grad():
-        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
-                                 cfg)
-        gx, gy = tile_grid(cam.width, cam.height, cfg.tile_wh)
-        cull_op = scene.opacities if cfg.tile_cull else None
-        binner = bin_gaussians if cfg.pack_mode == "chunk" else bin_gaussians_nopack
-        binned = binner(proj, gx, gy, cfg.max_pairs, cull_op, cfg.tile_wh,
-                        cfg.alpha_min, expansion=expansion)
-        colors = compute_colors(scene.means, scene.sh, cam.position)
-        payload = build_payload(proj, colors, scene.opacities, binned)
-    return proj, (gx, gy), binned, payload
+        s = render_stages(*args, cam.to_view(args[0].device), cam.width,
+                          cam.height, cfg)
+    return s.proj, s.grid, s.binned, s.payload
 
 
-def phase1(dev):
+def phase1(dev, blend="vpu", name="phase1"):
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, bin_gaussians_nopack
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
 
-    for tag, cfg, cam, scene in test_scenes(dev):
-        tag = f"phase1 {tag}"
+    for tag, cfg, cam, scene in test_scenes(dev, blend):
+        tag = f"{name} {tag}"
         w, h = cam.width, cam.height
         proj, (gx, gy), bk, payload = bin_and_payload(scene, cam, cfg)
         with torch.no_grad():
@@ -433,9 +456,8 @@ def phase3(dev):
         img, aux = render_aux(*args, cam, cfg=cfg)
         torch.cuda.synchronize()
         launches = read_launches()
-        check_launches("phase3 main path", launches, {
-            "expand": 1, "rasterize": 1, "rasterize_backward": 0,
-            "segsum_f32": 0, "segsum_bf16": 0})
+        check_launches("phase3 main path", launches, expand=1,
+                       rasterize_vpu=1)
         check(not bool(aux.overflow), "phase3: overflow")
         check(tuple(img.shape) == (3, h, w), f"image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -505,7 +527,7 @@ def phase3(dev):
     k1_bound = bound(k1_bytes, cfg.max_pairs * n_g.bit_length())
     pix = cfg.tile_wh[0] * cfg.tile_wh[1]
     k2_bytes = used * 9 * 4 + nt * 8 + nt * pix * 16
-    k2_bound = bound(k2_bytes, evaluated * OPS_PER_PAIR
+    k2_bound = bound(k2_bytes, evaluated * OPS_PER_PAIR["vpu"]
                      + applied * OPS_PER_APPLIED["forward"])
     context = dict(scene=scene, cam=cam, cfg=cfg, pairs=(evaluated, applied),
                    used=used)
@@ -519,7 +541,7 @@ def phase3(dev):
         {"name": "rasterize_forward", "route": "cuda",
          "source": f"{PKG}/rasterize.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
-         "launches": launches["rasterize"], "max_abs_err": blend[0],
+         "launches": launches["rasterize_vpu"], "max_abs_err": blend[0],
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
     ], context
@@ -578,13 +600,13 @@ def backward_stages(tag, payload, binned, residual, gx, w, h, cfg, n_out):
     return out
 
 
-def phase4(dev):
+def phase4(dev, blend="vpu", name="phase4"):
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
 
-    for i, (tag, cfg, cam, scene) in enumerate(test_scenes(dev)):
-        tag = f"phase4 {tag}"
+    for i, (tag, cfg, cam, scene) in enumerate(test_scenes(dev, blend)):
+        tag = f"{name} {tag}"
         w, h = cam.width, cam.height
         _proj, (gx, _gy), binned, payload = bin_and_payload(scene, cam, cfg)
         with torch.no_grad():
@@ -601,19 +623,6 @@ def grad_leaves(scene):
             for t in scene.render_args()]
 
 
-def fwd_bwd(leaves, bg, cam, cfg):
-    """One differentiable frame: loss = image sum (bench.py), backward to
-    the five gaussian groups and the background."""
-    import torch
-
-    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
-
-    img, aux = render_aux(*leaves, cam, bg_color=bg, cfg=cfg)
-    loss = img.sum()
-    grads = torch.autograd.grad(loss, [*leaves, bg])
-    return loss.detach(), grads, aux
-
-
 def phase5(dev, ctx):
     import torch
 
@@ -623,6 +632,7 @@ def phase5(dev, ctx):
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
     from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import fwd_bwd_frame as fwd_bwd
 
     scene, cam, cfg = ctx["scene"], ctx["cam"], ctx["cfg"]
     w, h = cam.width, cam.height
@@ -634,19 +644,18 @@ def phase5(dev, ctx):
     # the differentiable paths, each with the launch counts over exactly it:
     # one frame launches each kernel of its path once, and only its own
     # segment-sum variant
-    one = {"expand": 1, "rasterize": 1, "rasterize_backward": 1}
+    one = {"expand": 1, "rasterize_vpu": 1, "rasterize_backward_vpu": 1}
     reset_launches()
     loss, grads, aux = fwd_bwd(leaves, bg, cam, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_launches("phase5 f32 frame", launches,
-                   {**one, "segsum_f32": 1, "segsum_bf16": 0})
+    check_launches("phase5 f32 frame", launches, **one, segsum_f32=1)
     reset_launches()
     _loss16, grads16, _ = fwd_bwd(leaves, bg, cam, cfg16)
     torch.cuda.synchronize()
     launches16 = read_launches()
-    check_launches("phase5 bf16-reduce frame", launches16,
-                   {**one, "segsum_f32": 0, "segsum_bf16": 1})
+    check_launches("phase5 bf16-reduce frame", launches16, **one,
+                   segsum_bf16=1)
     check(not bool(aux.overflow), "phase5: overflow")
     check(bool(torch.isfinite(loss)), "phase5: non-finite loss")
     for name, g, leaf in zip(names, grads, [*leaves, bg]):
@@ -728,7 +737,10 @@ def phase5(dev, ctx):
     # the differentiable frame: median of 5 chained reps (rep i's bg hangs
     # on rep i-1's loss, bench.py:133-140)
     with torch.no_grad():
-        _, fwd_ms = timed_once(lambda: render_aux(*leaves, cam, cfg=cfg))
+        render_aux(*leaves, cam, cfg=cfg)  # warm-up after the VJPs
+        fwd_ms = statistics.median(
+            timed_once(lambda: render_aux(*leaves, cam, cfg=cfg))[1]
+            for _ in range(3))
     torch.cuda.reset_peak_memory_stats()
     val = loss
     fwd_bwd(leaves, bg, cam, cfg)  # warm-up
@@ -741,7 +753,8 @@ def phase5(dev, ctx):
     frame_ms = statistics.median(frames)
     log(f"phase5: fwd+bwd frame median of 5 = {frame_ms:.3f} ms (all: "
         f"{' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
-    log(f"phase5 stages (ms): forward frame {fwd_ms:.3f}; backward blend "
+    log(f"phase5 stages (ms): forward frame (median of 3) {fwd_ms:.3f}; "
+        f"backward blend "
         f"kernel {b2_ms:.3f}; sort {sort_ms:.3f}; row gather {gather_ms:.3f}; "
         f"segment-sum kernel f32 {seg['f32'][0]:.3f} bf16 {seg['bf16'][0]:.3f}; "
         f"projection+SH VJP {vjp_ms:.3f}")
@@ -770,8 +783,7 @@ def phase5(dev, ctx):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         check(not bool(step_aux.overflow), "phase5 training: overflow")
     check_launches("phase5 training", read_launches(),
-                   {**{k: n_steps for k in one}, "segsum_f32": n_steps,
-                    "segsum_bf16": 0})
+                   **{k: n_steps for k in one}, segsum_f32=n_steps)
     log(f"phase5 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
         f"ms per step median {statistics.median(step_ms):.3f} (all: "
         f"{' '.join(f'{v:.3f}' for v in step_ms)})")
@@ -784,14 +796,15 @@ def phase5(dev, ctx):
     evaluated, applied = ctx["pairs"]
     # the payload slots in range read, their gradients written
     b2_bytes = ctx["used"] * 9 * 4 * 2 + nt * pix * 32 + nt * 8
-    b2_bound = bound(b2_bytes, evaluated * OPS_PER_PAIR
+    b2_bound = bound(b2_bytes, evaluated * OPS_PER_PAIR["vpu"]
                      + applied * OPS_PER_APPLIED["backward"])
     seg_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
     record = [
         {"name": "rasterize_backward", "route": "cuda",
          "source": f"{PKG}/rasterize_backward.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
-         "launches": launches["rasterize_backward"], "max_abs_err": b2_abs,
+         "launches": launches["rasterize_backward_vpu"],
+         "max_abs_err": b2_abs,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound[0],
          "bound_by": b2_bound[1], "library_ms": None},
     ]
@@ -810,6 +823,263 @@ def phase5(dev, ctx):
     return record
 
 
+def entry_counts(scene, cam, cfg):
+    """(AABB slots, entries the tile cull keeps) of a scene at ``cfg``: the
+    expansion kernel at the configuration's capacity (the kept count is
+    exact while the AABB total fits)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
+
+    with torch.no_grad():
+        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
+                                 cfg)
+        gx, gy = tile_grid(cam.width, cam.height, cfg.tile_wh)
+        _t, _d, gid, total = expand_entries_kernel(
+            proj, gx, gx * gy, cfg.max_pairs, cull_opacity(scene, cfg),
+            cfg.tile_wh, cfg.alpha_min)
+        return int(total), int((gid >= 0).sum())
+
+
+def log_frames(tag, res):
+    log(f"{tag}: fwd+bwd frame median of {len(res['reps_ms'])} chained reps "
+        f"= {res['median_ms']:.3f} ms, mean {res['ms']:.3f} (all: "
+        f"{' '.join(f'{v:.3f}' for v in res['reps_ms'])}); first frame "
+        f"{res['first_ms']:.3f} ms; num_rendered {res['num_rendered']}; "
+        f"peak mem {res['peak_gib']:.2f} GiB; {res['px_s']:.1f} px/s")
+
+
+def phase6(dev):
+    """The production slice: bench.py's headline (2M) and north-star (6M)
+    configurations at 1920x1080, ``blend_quad="mxu"``."""
+    import torch
+
+    import bench_cuda
+    from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import frame_profile, fwd_bwd_frame
+
+    # the timed frames first, each scale alone on the card: bench's chained
+    # reps through the bench's own function
+    heads = bench_cuda.run_config("headline", dev)
+    log_frames("phase6 headline", heads)
+    scene, cam, cfg, _ = bench_cuda.scene_camera_config("north_star", dev)
+    ns_counts = entry_counts(scene, cam, cfg)
+    del scene
+    ns = bench_cuda.run_config("north_star", dev)
+    log(f"phase6 north star: 6M gaussians, AABB slots {ns_counts[0]} of "
+        f"max_pairs {cfg.max_pairs}, kept by the cull {ns_counts[1]} of "
+        f"max_pairs_sorted {cfg.max_pairs_sorted}")
+    log_frames("phase6 north star", ns)
+
+    scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline", dev)
+    w, h = cam.width, cam.height
+    n = scene.means.shape[0]
+    leaves = grad_leaves(scene)
+    bg = torch.zeros(3, device=dev, requires_grad=True)
+    names = ("means", "scales", "quats", "opacities", "sh", "bg")
+
+    # the main path: one production frame, the launch counts over exactly it
+    reset_launches()
+    loss, grads, aux = fwd_bwd_frame(leaves, bg, cam, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches("phase6 production frame", launches, expand=1,
+                   rasterize_mxu=1, rasterize_backward_mxu=1, segsum_bf16=1)
+    check(not bool(aux.overflow), "phase6: overflow")
+    check(bool(torch.isfinite(loss)), "phase6: non-finite loss")
+    for name, g, leaf in zip(names, grads, [*leaves, bg]):
+        check(g.shape == leaf.shape and bool(torch.isfinite(g).all()),
+              f"phase6: gradient of {name} is not finite or mis-shaped")
+        check(float(g.abs().max()) > 0, f"phase6: zero gradient of {name}")
+    num_rendered = int(aux.num_rendered)
+    aabb, kept = entry_counts(scene, cam, cfg)
+    log(f"phase6 headline: 2M gaussians, AABB slots {aabb} of max_pairs "
+        f"{cfg.max_pairs}, kept by the cull {kept} of max_pairs_sorted "
+        f"{cfg.max_pairs_sorted}, num_rendered {num_rendered}")
+
+    # the stages again: the expansion kernel with the cull on the frame's
+    # bf16-rounded opacities against the plain expansion, the binning with
+    # either expansion, then on the frame's payload the mxu kernels against
+    # their plain versions and the mxu image against the vpu image
+    with torch.no_grad():
+        proj, (gx, gy), binned, payload = bin_and_payload(scene, cam, cfg)
+        check(int(binned.num_rendered) == num_rendered,
+              "phase6: num_rendered differs from the main path")
+        cull_op = cull_opacity(scene, cfg)
+        _k, k1_err = compare_expansion(proj, gx, gx * gy, cfg.max_pairs,
+                                       cull_op, cfg.tile_wh, cfg)
+        _p, _g, bp, _pl = bin_and_payload(scene, cam, cfg, expansion="xla")
+        for f in binned._fields:
+            check(torch.equal(getattr(binned, f), getattr(bp, f)),
+                  f"phase6: binning {f} differs kernel vs plain expansion")
+        log(f"phase6: expansion kernel with the cull identical to plain "
+            f"(total {int(_k[3])}), binning identical with either expansion")
+        del _k, _p, _g, bp, _pl
+        ranges = (binned.tile_starts, binned.tile_counts)
+        ck, tk = rasterize_forward(payload, *ranges, gx, w, h, cfg)
+        cp, tp = rasterize_reference(payload, *ranges, gx, w, h, cfg)
+        blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
+        check_blend("phase6 mxu", *blend)
+        cfg_vpu = dataclasses.replace(cfg, blend_quad="vpu")
+        cv, tv = rasterize_forward(payload, *ranges, gx, w, h, cfg_vpu)
+        d_max, n_over, n_pix = blend_diff(ck, tk, cv, tv, gx, gy, w, h,
+                                          cfg.tile_wh)
+        allowed = int(FLIP_SHARE * n_pix)
+        log(f"phase6: mxu image vs vpu image max|d|={d_max:.3e} "
+            f"pixels>{TOL:g}: {n_over} (allowed {allowed})")
+        check(n_over <= allowed and d_max <= FLIP_TOL,
+              "phase6: the mxu image is too far from the vpu image")
+        del cp, tp, cv, tv
+
+    # the frame's residual (loss = image sum over the background), then
+    # the mxu backward kernel against its plain version, twice
+    c_leaf = ck.clone().requires_grad_(True)
+    t_leaf = tk.clone().requires_grad_(True)
+    img_c, img_t = _tiles_to_image(c_leaf, t_leaf, gx, gy, w, h, cfg.tile_wh)
+    d_color, d_trans = torch.autograd.grad(
+        (img_c + bg.detach()[:, None, None] * img_t[None]).sum(),
+        [c_leaf, t_leaf])
+    with torch.no_grad():
+        residual = make_residual(d_color, d_trans, ck, tk)
+        st = backward_stages("phase6 mxu", payload, binned, residual, gx, w,
+                             h, cfg, n)
+    dk, dp, b3_abs, _b3_rel, b3_plain = st["b2"]
+
+    # the five groups' gradients through the all-plain backward, with the
+    # frame's bf16 reduction
+    with torch.no_grad():
+        d_table = segment_sum_reference(binned.entry_gid, dp.t(), n,
+                                        cfg.grad_reduce_dtype)
+    colors = compute_colors(leaves[0], leaves[4], cam.position)
+    proj_g = project_gaussians(leaves[0], leaves[1], leaves[2], cam, cfg)
+    table = payload_table(proj_g, colors, leaves[3])
+    plain = list(torch.autograd.grad(table, leaves, grad_outputs=d_table,
+                                     allow_unused=True))
+    plain = [torch.zeros_like(l) if g is None else g
+             for g, l in zip(plain, leaves)]
+    with torch.no_grad():
+        t_img = _tiles_to_image(ck, tk, gx, gy, w, h, cfg.tile_wh)[1]
+        plain.append(t_img.sum().expand(3).clone())  # dL/dbg = sum T
+        for name, g, p in zip(names, grads, plain):
+            check_fields("phase6", "gradient", g.reshape(-1, 1),
+                         p.reshape(-1, 1), [name])
+    del table, proj_g, colors, plain, d_table, dp, st
+
+    # kernel and plain times at the frame's shapes, and the forward frame
+    reps = 5
+    with torch.no_grad():
+        k2_ms = cuda_ms(lambda: rasterize_forward(
+            payload, *ranges, gx, w, h, cfg), reps)
+        k2_plain = cuda_ms(lambda: rasterize_reference(
+            payload, *ranges, gx, w, h, cfg), 2)
+        k3_ms = cuda_ms(lambda: rasterize_backward(
+            payload, *ranges, residual, gx, w, h, cfg), reps)
+        render_aux(*scene.render_args(), cam, cfg=cfg)  # warm-up
+        fwd = [timed_once(lambda: render_aux(*scene.render_args(), cam,
+                                             cfg=cfg))[1] for _ in range(5)]
+        evaluated, applied = pair_counts(payload, *ranges, gx, w, h, cfg)
+        # K1 and K4 at this frame's shapes (tile 32 with the cull; the
+        # trimmed stream's rows, rounded to bf16), with their bounds
+        k1_ms = cuda_ms(lambda: expand_entries_kernel(
+            proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
+            cfg.alpha_min), reps)
+        key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
+                          torch.full_like(binned.entry_gid, n))
+        sorted_key, perm = torch.sort(key, stable=True)
+        rows_t = dk[:, perm].t()
+        n_valid = int((sorted_key < n).sum())
+        k4_ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
+                                                   "bf16"), reps)
+    k1_bound = bound(n * 28 + cfg.max_pairs * 12,
+                     cfg.max_pairs * n.bit_length())
+    k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
+    log(f"phase6: expansion kernel {k1_ms:.3f} ms (bound {k1_bound[0]:.3f} "
+        f"{k1_bound[1]}); segment-sum kernel bf16 {k4_ms:.3f} ms (bound "
+        f"{k4_bound[0]:.3f} {k4_bound[1]}), rows summed {n_valid} of "
+        f"{key.shape[0]}")
+    log(f"phase6: forward frame median of 5 = {statistics.median(fwd):.3f} "
+        f"ms (all: {' '.join(f'{v:.3f}' for v in fwd)})")
+    log(f"phase6: mxu blend kernel {k2_ms:.3f} ms vs plain {k2_plain:.3f} "
+        f"ms; mxu backward blend kernel {k3_ms:.3f} ms vs plain "
+        f"{b3_plain:.3f} ms; pairs evaluated {evaluated} applied {applied}")
+
+    # five training steps at this config, towards the scene's own render
+    with torch.no_grad():
+        target = render_aux(*scene.render_args(), cam, cfg=cfg)[0]
+    start = scene.to_params()
+    start = start._replace(opacity_logits=start.opacity_logits - 1.0)
+    tc = TrainConfig(lr_opacity=0.1)
+    state, opt = init_train_state(start, tc)
+    step = make_train_step(opt, w, h, cfg=cfg, tc=tc)
+    view = cam.to_view(dev)
+    n_steps = 5
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, step_loss, step_aux = step(state, view, target)
+        losses.append(float(step_loss))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(not bool(step_aux.overflow), "phase6 training: overflow")
+    check_launches("phase6 training", read_launches(), expand=n_steps,
+                   rasterize_mxu=n_steps, rasterize_backward_mxu=n_steps,
+                   segsum_bf16=n_steps)
+    log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
+        f"ms per step median {statistics.median(step_ms):.3f} (all: "
+        f"{' '.join(f'{v:.3f}' for v in step_ms)})")
+    check(all(map(math.isfinite, losses)), "phase6 training: non-finite loss")
+    check(losses[-1] < losses[0], "phase6 training: the loss did not fall")
+    del state, opt, step, target
+
+    # one production frame under the profiler
+    prof = frame_profile(scene, cam, cfg)
+    check(prof.busy_ms is not None and prof.busy_ms > 0,
+          "phase6 profile: no device time recorded")
+    log(f"phase6 profile: one fwd+bwd frame {prof.wall_ms:.3f} ms with the "
+        f"profiler on, device busy {prof.busy_ms:.3f} ms: share "
+        f"{prof.busy_share:.3f} of the profiled frame, "
+        f"{prof.busy_ms / heads['median_ms']:.3f} of the unprofiled median")
+    for what, rows in (("op (self device ms)", prof.ops),
+                       ("kernel (device ms)", prof.kernels)):
+        log(f"phase6 profile: top 15 by {what}, of {len(rows)}:")
+        for name, ms, calls in rows[:15]:
+            log(f"  {ms:9.3f} ms {calls:5d}x  {name[:100]}")
+
+    # bounds from this run's inputs (as phases 3 and 5)
+    nt = gx * gy
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    used = used_slots(binned)
+    k2_bound = bound(used * 9 * 4 + nt * 8 + nt * pix * 16,
+                     evaluated * OPS_PER_PAIR["mxu"]
+                     + applied * OPS_PER_APPLIED["forward"])
+    k3_bound = bound(used * 9 * 4 * 2 + nt * pix * 32 + nt * 8,
+                     evaluated * OPS_PER_PAIR["mxu"]
+                     + applied * OPS_PER_APPLIED["backward"])
+    return [
+        {"name": "rasterize_forward_mxu", "route": "cuda",
+         "source": f"{PKG}/rasterize.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
+         "launches": launches["rasterize_mxu"], "max_abs_err": blend[0],
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "rasterize_backward_mxu", "route": "cuda",
+         "source": f"{PKG}/rasterize_backward.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
+         "launches": launches["rasterize_backward_mxu"],
+         "max_abs_err": b3_abs, "ms": k3_ms, "plain_ms": b3_plain,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+    ]
+
+
 def main():
     import torch
 
@@ -821,17 +1091,25 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
+    record = []
     try:
         card = phase0()
         phase1(dev)
         phase2()
-        record, ctx = phase3(dev)
+        rec, ctx = phase3(dev)
+        record += rec
         phase4(dev)
         record += phase5(dev, ctx)
+        ctx = None  # phase 3's scene
+        # the mxu kernels first at phase 1 and 4's settings (every tile
+        # shape, pack mode and cull), then at the production frame
+        phase1(dev, "mxu", "phase6 sweep fwd mxu")
+        phase4(dev, "mxu", "phase6 sweep bwd mxu")
+        record += phase6(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 0-6 passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At its first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/torch_kernels/<name>-<hash>.so`` beside the package and loaded with
-``ctypes``; the hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is compiled at import time.
+``ctypes``; the hash covers the source, the headers of ``csrc/`` and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is compiled at import time.
 
 A failed build raises: there is no fallback to the plain PyTorch versions.
 """
@@ -24,10 +25,12 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
-# no --use_fast_math: the kernels must round like the plain versions
+# no --use_fast_math: the kernels must round like the plain versions;
+# -Xptxas -v reports each kernel's registers, shared memory and spills
+# (kept in ``KernelLib.build_log``)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -45,15 +48,19 @@ def _nvcc() -> str:
 class KernelLib:
     """One ``csrc/<name>.cu`` shared library, built on first use.
 
-    ``launches`` counts kernel launches; a wrapper adds one where it
-    launches the kernel and nowhere else.
+    ``launches`` counts kernel launches; a wrapper calls :meth:`launched`
+    where it launches the kernel and nowhere else. A library whose kernel
+    has variants (a blend mode, a row type) also counts launches per variant
+    in ``variant_launches``.
     """
 
-    def __init__(self, name: str, signatures: dict):
+    def __init__(self, name: str, signatures: dict, variants=()):
         self.name = name
         self.signatures = signatures  # C function -> (restype, argtypes)
         self.launches = 0
+        self.variant_launches = dict.fromkeys(variants, 0)
         self.build_seconds = None
+        self.build_log = ""  # nvcc's report of a build in this process
         self._lib = None
         self._lock = threading.Lock()
 
@@ -67,10 +74,23 @@ class KernelLib:
                 self._lib = self._load()
             return self._lib
 
+    def launched(self, variant: str | None = None) -> None:
+        """Count one launch (of ``variant``)."""
+        self.launches += 1
+        if variant is not None:
+            self.variant_launches[variant] += 1
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        for v in self.variant_launches:
+            self.variant_launches[v] = 0
+
     def _load(self) -> ctypes.CDLL:
-        with open(self.source, "rb") as f:
-            src = f.read()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, h) for h in headers]:
+            with open(path, "rb") as f:
+                digest.update(f.read())
         path = os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -89,6 +109,7 @@ class KernelLib:
                 )
             os.replace(tmp, path)
             self.build_seconds = time.perf_counter() - t0
+            self.build_log = proc.stdout + proc.stderr
         lib = ctypes.CDLL(path)
         for fn, (restype, argtypes) in self.signatures.items():
             f = getattr(lib, fn)

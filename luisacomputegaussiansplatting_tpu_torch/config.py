@@ -32,6 +32,13 @@ TILE = 16
 #: comparable slot for slot with the JAX package)
 CHUNK = 128
 
+#: blend_quad="mxu": an entry is kept while power <= POWER_GUARD, i.e.
+#: power' <= ln(opacity) + POWER_GUARD for the ln-opacity-folded power'
+#: (JAX package ops/rasterize_pallas.py:162-167); the guard keeps splat
+#: centres, where power == 0, on the include side of the polynomial's
+#: rounding
+POWER_GUARD = 1e-3
+
 _ENUMS = {
     "rect_mode": ("inria", "lcgs"),
     "pack_mode": ("chunk", "none"),
@@ -93,7 +100,11 @@ class RenderConfig:
     sort_mode: str = "2key"
     #: "bf16" rounds opacity and rgb to bf16 in the payload
     payload_dtype: str = "f32"
-    #: "vpu" = elementwise conic quadratic; "mxu" is not ported yet
+    #: "vpu" = the conic quadratic per (entry, pixel), kept while power <= 0;
+    #: "mxu" = power' = power + ln(opacity) as a tile-local pixel polynomial
+    #: with per-entry coefficients, alpha = exp(power'), kept while
+    #: power' <= ln(opacity) + POWER_GUARD (results differ from "vpu" by
+    #: rounding and the guard band)
     blend_quad: str = "vpu"
     #: ignored; kept so the field lists of both packages agree
     interpret: bool | None = None

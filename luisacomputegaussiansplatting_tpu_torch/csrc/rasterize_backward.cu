@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel luisacomputegaussiansplatting_tpu/ops/
 // rasterize_pallas.py `_backward_kernel` (launched by `rasterize_backward`,
-// the backward of the custom VJP `rasterize_tiles`), blend_quad="vpu". The
+// the backward of the custom VJP `rasterize_tiles`), in both of its modes,
+// blend_quad="vpu" and "mxu" (a template parameter here). The
 // TPU version replays (pixels x 128-entry chunks) as dense tiles with MXU
 // prefix sums and a tile-local moment contraction, and read-modify-writes
 // the chunks that two tiles share in the no-pack layout. Here, as in the
@@ -33,6 +34,14 @@
 //    modes, so no write is shared. Slots outside every range are not
 //    written, as in the TPU kernel: no caller reads them (their gid is -1).
 //
+//  * blend_quad="mxu" replays K2's mxu mode (blend_mxu.cuh, the same
+//    coefficients and op order): the first warp computes the staged
+//    entries' coefficients into shared memory beside their fields. alpha
+//    is exp(power'), never op * exp(power), so the opacity gradient is
+//    sum_p dL/dalpha alpha, divided once per entry by the opacity where it
+//    is > 0 (as the JAX kernel, rasterize_pallas.py:643-644). Every other
+//    term, and the reduction, is vpu's.
+//
 // What bounds it on the card: per (entry, pixel) pair the forward's
 // arithmetic and transcendentals plus the gradient terms, and per entry and
 // warp the shuffle reduction, i.e. FP32/SFU issue. Device memory traffic is
@@ -42,12 +51,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_mxu.cuh"
+
 namespace {
 
 constexpr int kFields = 9;
 constexpr int kMaxPix = 1024;
 constexpr int kBatch = 32;  // entries staged per round
 
+template <bool kMxu>
 __global__ void __launch_bounds__(kMaxPix)
 rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
                           int64_t capacity,
@@ -56,9 +68,10 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
                           const float* __restrict__ residual,  // (tiles, pix, 8)
                           int grid_x, int width, int height,
                           int tile_w, int tile_h, float alpha_max,
-                          float alpha_min, float t_eps,
+                          float alpha_min, float t_eps, float power_guard,
                           float* __restrict__ grads) {  // (9, capacity)
   __shared__ float stage[kFields][kBatch];
+  __shared__ float coef[kMxu ? kMxuCoefs : 1][kBatch];  // mxu only
   extern __shared__ float part[];  // (9, warps, kBatch) per-warp sums
   const int pix = tile_w * tile_h;  // == blockDim.x, a multiple of 32
   const int n_warps = pix >> 5;
@@ -66,10 +79,12 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int ix = (tile % grid_x) * tile_w + p % tile_w;
-  const int iy = (tile / grid_x) * tile_h + p / tile_w;
+  const int tx = (tile % grid_x) * tile_w, ty = (tile / grid_x) * tile_h;
+  const int ix = tx + p % tile_w;
+  const int iy = ty + p / tile_w;
   const bool inside = ix < width && iy < height;
   const float fx = (float)ix, fy = (float)iy;
+  const MxuBasis u = mxu_basis(p, tile_w);  // unused by vpu
   const int64_t start = tile_starts[tile];
   const int count = tile_counts[tile];
 
@@ -94,6 +109,15 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
       const int f = i / kBatch, k = i % kBatch;
       if (k < m) stage[f][k] = payload[f * capacity + start + b0 + k];
     }
+    if constexpr (kMxu) {
+      if (p < m) {
+        const float* src = payload + start + b0 + p;
+        mxu_coefficients(src[0], src[capacity], src[2 * capacity],
+                         src[3 * capacity], src[4 * capacity],
+                         src[5 * capacity], (float)tx, (float)ty, power_guard,
+                         &coef[0][p], kBatch);
+      }
+    }
     __syncthreads();
     for (int k = 0; k < m; ++k) {
       float v[kFields];
@@ -104,14 +128,24 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
         // the forward's op order (rasterize.cu), for its decisions
         const float dx = __fsub_rn(stage[0][k], fx);
         const float dy = __fsub_rn(stage[1][k], fy);
-        const float qa = __fmul_rn(__fmul_rn(stage[2][k], dx), dx);
-        const float qc = __fmul_rn(__fmul_rn(stage[4][k], dy), dy);
-        const float power =
-            __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)),
-                      __fmul_rn(__fmul_rn(stage[3][k], dx), dy));
-        if (power <= 0.0f) {
-          const float g = expf(power);
-          const float raw = __fmul_rn(stage[5][k], g);
+        bool pow_ok;
+        float g, raw;  // vpu: g = exp(power), raw = op g; mxu: raw = exp(power')
+        if constexpr (kMxu) {
+          const float pw = mxu_power(&coef[0][k], kBatch, u);
+          pow_ok = pw <= coef[kMxuCoefs - 1][k];
+          g = 0.0f;
+          raw = pow_ok ? expf(pw) : 0.0f;
+        } else {
+          const float qa = __fmul_rn(__fmul_rn(stage[2][k], dx), dx);
+          const float qc = __fmul_rn(__fmul_rn(stage[4][k], dy), dy);
+          const float power =
+              __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)),
+                        __fmul_rn(__fmul_rn(stage[3][k], dx), dy));
+          pow_ok = power <= 0.0f;
+          g = pow_ok ? expf(power) : 0.0f;
+          raw = __fmul_rn(stage[5][k], g);
+        }
+        if (pow_ok) {
           const float alpha = raw > alpha_max ? alpha_max : raw;
           if (alpha >= alpha_min) {
             const float s_new = __fadd_rn(s, log1pf(-alpha));
@@ -137,7 +171,8 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
               v[2] = -0.5f * d_pow * dx * dx;
               v[3] = -d_pow * dx * dy;
               v[4] = -0.5f * d_pow * dy * dy;
-              v[5] = d_alpha * g;
+              // mxu: d_alpha alpha here, divided by the opacity below
+              v[5] = kMxu ? d_pow : d_alpha * g;
               v[6] = w * g_r;
               v[7] = w * g_g;
               v[8] = w * g_b;
@@ -171,6 +206,10 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
         const float* src = part + f * n_warps * kBatch + k;
         float acc = 0.0f;
         for (int w = 0; w < n_warps; ++w) acc += src[w * kBatch];
+        if (kMxu && f == 5) {
+          const float op = stage[5][k];
+          acc = op > 0.0f ? __fdiv_rn(acc, op) : 0.0f;
+        }
         grads[f * capacity + start + b0 + k] = acc;
       }
     }
@@ -184,17 +223,21 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
 
 }  // namespace
 
+// mxu: 0 = blend_quad "vpu", 1 = "mxu"
 extern "C" int rasterize_backward_launch(
     const float* payload, int64_t capacity, const int32_t* tile_starts,
     const int32_t* tile_counts, const float* residual, int num_tiles,
-    int grid_x, int width, int height, int tile_w, int tile_h,
-    float alpha_max, float alpha_min, float t_eps, float* grads,
-    cudaStream_t stream) {
+    int grid_x, int width, int height, int tile_w, int tile_h, int mxu,
+    float alpha_max, float alpha_min, float t_eps, float power_guard,
+    float* grads, cudaStream_t stream) {
   const int pix = tile_w * tile_h;
   if (pix % 32 != 0 || pix > kMaxPix) return (int)cudaErrorInvalidValue;
   const size_t part_bytes = sizeof(float) * kFields * (pix / 32) * kBatch;
-  rasterize_backward_kernel<<<num_tiles, pix, part_bytes, stream>>>(
+  auto kernel = mxu ? rasterize_backward_kernel<true>
+                    : rasterize_backward_kernel<false>;
+  kernel<<<num_tiles, pix, part_bytes, stream>>>(
       payload, capacity, tile_starts, tile_counts, residual, grid_x, width,
-      height, tile_w, tile_h, alpha_max, alpha_min, t_eps, grads);
+      height, tile_w, tile_h, alpha_max, alpha_min, t_eps, power_guard,
+      grads);
   return (int)cudaGetLastError();
 }

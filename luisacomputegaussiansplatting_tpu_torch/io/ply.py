@@ -73,9 +73,10 @@ def _read_vertex_table(path: str) -> Tuple[Dict[str, np.ndarray], int]:
 
 
 def load_ply(path, apply_activations: bool = True,
-             device="cpu") -> GaussianScene:
-    """Load a 3DGS checkpoint PLY into a ``GaussianScene`` on ``device``
-    (raw stored values with ``apply_activations=False``)."""
+             device="cuda") -> GaussianScene:
+    """Load a 3DGS checkpoint PLY into a ``GaussianScene`` on ``device``, by
+    default the card (raw stored values with ``apply_activations=False``);
+    without a GPU, pass ``device="cpu"``."""
     cols, n = _read_vertex_table(os.fspath(path))
 
     def grab(names):

@@ -3,7 +3,8 @@
 Both generators make their arrays in numpy with the same RNG calls, in the
 same order and precision, as the JAX package, so ``random_scene(n, seed)``
 gives bit-identical float32 arrays in both packages; only the last step,
-the copy to ``device``, differs.
+the copy to ``device``, differs. ``device`` defaults to the card; without
+a GPU, pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..utils.sh import num_sh_coeffs, sh_from_color
 
 def create_cube_scene(origin=(-1.0, -1.0, -1.0), side=(2.0, 2.0, 2.0),
                       nx: int = 8, scale: float = 0.05, opacity: float = 0.8,
-                      sh_degree: int = 3, device="cpu") -> GaussianScene:
+                      sh_degree: int = 3, device="cuda") -> GaussianScene:
     """Regular grid of isotropic gaussians coloured by normalised position
     (reference app/gaussians.cpp:47-73)."""
     u = np.arange(nx, dtype=np.float32) / nx
@@ -39,7 +40,7 @@ def create_cube_scene(origin=(-1.0, -1.0, -1.0), side=(2.0, 2.0, 2.0),
 
 def random_scene(n: int, seed: int = 0, extent: float = 3.0,
                  scale_range=(0.01, 0.15), sh_degree: int = 3,
-                 sh_rest_std: float = 0.05, device="cpu") -> GaussianScene:
+                 sh_rest_std: float = 0.05, device="cuda") -> GaussianScene:
     """Reproducible random scene with anisotropic, rotated gaussians."""
     rng = np.random.default_rng(seed)
     means = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 class GaussianParams(NamedTuple):
     """Raw parameters (the trainable set)."""
@@ -132,7 +134,7 @@ def pad_params_to(params: GaussianParams, capacity: int) -> GaussianParams:
 
 def _tensor(x, device):
     # a float32 copy: arrays handed over from jax are read-only
-    return torch.from_numpy(np.array(x, np.float32)).to(device)
+    return torch.from_numpy(np.array(x, np.float32)).to(resolve_device(device))
 
 
 def params_from_numpy(means, log_scales, quats_xyzw, opacity_logits, sh_dc,

@@ -131,5 +131,5 @@ def expand_entries_kernel(proj, grid_x: int, num_tiles: int, max_pairs: int,
             stream,
         )
     KERNEL.check(err, "expand_entries_launch")
-    KERNEL.launches += 1
+    KERNEL.launched()
     return out_tile, out_depth, out_gid, total

@@ -3,7 +3,10 @@
 the backward blend (``csrc/rasterize_backward.cu``).
 
 For CUDA tensors ``rasterize_forward`` and ``rasterize_backward`` launch
-their kernels; CPU tensors run the plain versions of ``rasterize_ref``.
+their kernels, in the ``cfg.blend_quad`` mode ("vpu" or "mxu", one kernel
+each with the mode as a launch argument); CPU tensors run the plain versions
+of ``rasterize_ref``. Each kernel counts its launches per mode
+(``KERNEL.variant_launches``).
 ``rasterize_tiles`` is the autograd Function of the pair: its backward turns
 the cotangents into the residual [dL/dC, dL/dT, C_final, T_final] and
 returns the per-entry payload gradient.
@@ -16,24 +19,28 @@ import ctypes
 import torch
 
 from .._build import KernelLib, require_cuda_tensors
-from ..config import RenderConfig
+from ..config import POWER_GUARD, RenderConfig
 from .rasterize_ref import FIELDS, rasterize_backward_reference, rasterize_reference
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
+BLEND_QUADS = ("vpu", "mxu")
+
 KERNEL = KernelLib("rasterize", {
     "rasterize_forward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _p, _p, _p],
+        [_p, _i64, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _p, _p,
+         _p],
     ),
-})
+}, variants=BLEND_QUADS)
 
 BACKWARD_KERNEL = KernelLib("rasterize_backward", {
     "rasterize_backward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _f, _p, _p],
+        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _p,
+         _p],
     ),
-})
+}, variants=BLEND_QUADS)
 
 #: one thread per pixel of a tile, one block per tile
 MAX_TILE_PIXELS = 1024
@@ -58,11 +65,10 @@ def _check_launch_args(fn: str, payload, tile_starts, tile_counts,
     return tw, th
 
 
-def _require_vpu(cfg: RenderConfig):
-    if cfg.blend_quad != "vpu":
-        raise NotImplementedError(
-            f"blend_quad={cfg.blend_quad!r} is not yet ported; use 'vpu'"
-        )
+def _mxu(cfg: RenderConfig) -> int:
+    """The kernels' mode argument: 1 for blend_quad="mxu", 0 for "vpu"
+    (``RenderConfig`` admits no other value)."""
+    return int(cfg.blend_quad == "mxu")
 
 
 def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
@@ -75,7 +81,6 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
     pix = tile_w * tile_h; T is the value after the last applied entry and
     0 for pixels past the image edge.
     """
-    _require_vpu(cfg)
     if payload.device.type == "cpu":
         return rasterize_reference(payload, tile_starts, tile_counts, grid_x,
                                    width, height, cfg)
@@ -94,11 +99,11 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
         err = lib.rasterize_forward_launch(
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), num_tiles, grid_x, width, height, tw, th,
-            cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps,
-            color.data_ptr(), trans.data_ptr(), stream,
+            _mxu(cfg), cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps,
+            POWER_GUARD, color.data_ptr(), trans.data_ptr(), stream,
         )
     KERNEL.check(err, "rasterize_forward_launch")
-    KERNEL.launches += 1
+    KERNEL.launched(cfg.blend_quad)
     return color, trans
 
 
@@ -117,7 +122,6 @@ def rasterize_backward(payload, tile_starts, tile_counts, residual,
     hold garbage on CUDA (the plain version zeros them), as in the JAX
     package: callers drop entries with gid < 0, which get no gradient.
     """
-    _require_vpu(cfg)
     if payload.device.type == "cpu":
         return rasterize_backward_reference(payload, tile_starts, tile_counts,
                                             residual, grid_x, width, height,
@@ -142,11 +146,11 @@ def rasterize_backward(payload, tile_starts, tile_counts, residual,
         err = lib.rasterize_backward_launch(
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), residual.data_ptr(), num_tiles, grid_x,
-            width, height, tw, th, cfg.alpha_max, cfg.alpha_min,
-            cfg.transmittance_eps, grads.data_ptr(), stream,
+            width, height, tw, th, _mxu(cfg), cfg.alpha_max, cfg.alpha_min,
+            cfg.transmittance_eps, POWER_GUARD, grads.data_ptr(), stream,
         )
     BACKWARD_KERNEL.check(err, "rasterize_backward_launch")
-    BACKWARD_KERNEL.launches += 1
+    BACKWARD_KERNEL.launched(cfg.blend_quad)
     return grads
 
 

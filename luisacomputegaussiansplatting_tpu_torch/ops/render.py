@@ -125,18 +125,24 @@ def _tiles_to_image(color, trans, grid_x: int, grid_y: int, width: int,
     return reshape(color), reshape(trans)[0]
 
 
-def render_view(means3d, scales, quats_xyzw, opacities, sh_coeffs,
-                cam_view: CameraView, width: int, height: int,
-                bg_color=(0.0, 0.0, 0.0), cfg: RenderConfig = RenderConfig(),
-                sh_degree: int = 3, scale_modifier: float = 1.0,
-                ewa_mode: str = "inria", active_mask=None,
-                means2d_probe=None):
-    """Render with a tensor CameraView on the device of ``means3d``.
+class RenderStages(NamedTuple):
+    """What a view's stages before the blend produce."""
 
-    Returns (image (3, H, W), RenderAux)."""
-    if cfg.blend_quad != "vpu":
-        raise NotImplementedError(
-            f"blend_quad={cfg.blend_quad!r} is not yet ported; use 'vpu'")
+    proj: ProjectedGaussians
+    grid: tuple  # (grid_x, grid_y) tiles
+    binned: object  # BinnedGaussians or NoPackBinned
+    payload: torch.Tensor  # (9, capacity) field-major payload
+    colors: torch.Tensor  # (N, 3) SH colours
+    cull_op: object  # the opacity the tile cull read, or None
+
+
+def render_stages(means3d, scales, quats_xyzw, opacities, sh_coeffs,
+                  cam_view: CameraView, width: int, height: int,
+                  cfg: RenderConfig = RenderConfig(), sh_degree: int = 3,
+                  scale_modifier: float = 1.0, ewa_mode: str = "inria",
+                  active_mask=None, means2d_probe=None) -> RenderStages:
+    """The stages of :func:`render_view` up to the blend: SH colours,
+    projection, binning and the payload gather (differentiable)."""
     colors = compute_colors(means3d, sh_coeffs, cam_view.position, sh_degree)
     proj = project_gaussians(
         means3d, scales, quats_xyzw, cam_view, cfg, scale_modifier, ewa_mode,
@@ -154,6 +160,23 @@ def render_view(means3d, scales, quats_xyzw, opacities, sh_coeffs,
     payload = build_payload(proj, colors, opacities, binned,
                             cfg.grad_reduce_dtype, cfg.payload_dtype,
                             cfg.grad_reduce_method)
+    return RenderStages(proj, (grid_x, grid_y), binned, payload, colors,
+                        cull_op)
+
+
+def render_view(means3d, scales, quats_xyzw, opacities, sh_coeffs,
+                cam_view: CameraView, width: int, height: int,
+                bg_color=(0.0, 0.0, 0.0), cfg: RenderConfig = RenderConfig(),
+                sh_degree: int = 3, scale_modifier: float = 1.0,
+                ewa_mode: str = "inria", active_mask=None,
+                means2d_probe=None):
+    """Render with a tensor CameraView on the device of ``means3d``.
+
+    Returns (image (3, H, W), RenderAux)."""
+    proj, (grid_x, grid_y), binned, payload, _, _ = render_stages(
+        means3d, scales, quats_xyzw, opacities, sh_coeffs, cam_view, width,
+        height, cfg, sh_degree, scale_modifier, ewa_mode, active_mask,
+        means2d_probe)
 
     if cfg.rasterizer == "pallas":
         color, trans = rasterize_tiles(payload, binned.tile_starts,

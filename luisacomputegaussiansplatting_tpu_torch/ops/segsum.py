@@ -26,21 +26,19 @@ from .._build import KernelLib, require_cuda_tensors
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-KERNEL = KernelLib("segsum", {
-    "segsum_launch": (
-        ctypes.c_int, [_p, _i64, _p, _i64, _i64, _i, _i64, _i, _p, _p],
-    ),
-})
-
 #: columns a row may have (the kernel keeps one register per column)
 MAX_COLS = 16
 DTYPES = ("f32", "bf16")
 METHODS = ("ride", "rowgather")
 
-#: launches of the kernel per row variant: "f32" rows (replaces
-#: ``_segsum_kernel``) and rows rounded to "bf16" (replaces
-#: ``_segsum_kernel_packed``); ``KERNEL.launches`` counts both
-LAUNCHES = dict.fromkeys(DTYPES, 0)
+#: launches are counted per row variant (``KERNEL.variant_launches``): "f32"
+#: rows (replaces ``_segsum_kernel``) and rows rounded to "bf16" (replaces
+#: ``_segsum_kernel_packed``)
+KERNEL = KernelLib("segsum", {
+    "segsum_launch": (
+        ctypes.c_int, [_p, _i64, _p, _i64, _i64, _i, _i64, _i, _p, _p],
+    ),
+}, variants=DTYPES)
 
 
 def _check(dtype: str, cols: int, method: str = "ride") -> None:
@@ -96,8 +94,7 @@ def segment_sum_kernel(sorted_ids, rows, n_out: int, dtype: str = "f32"):
             stream,
         )
     KERNEL.check(err, "segsum_launch")
-    KERNEL.launches += 1
-    LAUNCHES[dtype] += 1
+    KERNEL.launched(dtype)
     return out
 
 

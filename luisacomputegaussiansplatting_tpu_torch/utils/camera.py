@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 Vec3 = Tuple[float, float, float]
 
 
@@ -135,8 +137,9 @@ def view_matrix(cam: Camera, device) -> torch.Tensor:
 
 
 def projection_matrix(tan_fovx: float, tan_fovy: float, znear: float = 0.1,
-                      zfar: float = 100.0, device="cpu") -> torch.Tensor:
-    """4x4 view->clip: x/w = x/(tanfovx*z), z in [znear, zfar] -> [0, 1]."""
+                      zfar: float = 100.0, device="cuda") -> torch.Tensor:
+    """4x4 view->clip: x/w = x/(tanfovx*z), z in [znear, zfar] -> [0, 1], on
+    ``device`` (by default the card; without a GPU, pass ``device="cpu"``)."""
     a = zfar / (zfar - znear)
     b = -zfar * znear / (zfar - znear)
     return torch.tensor(
@@ -147,7 +150,7 @@ def projection_matrix(tan_fovx: float, tan_fovy: float, znear: float = 0.1,
             [0.0, 0.0, 1.0, 0.0],
         ],
         dtype=torch.float32,
-        device=device,
+        device=resolve_device(device),
     )
 
 

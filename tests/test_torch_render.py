@@ -33,7 +33,7 @@ CAM = ((3.0, -2.5, 2.0), (0, 0, 0), (0, 0, 1))
 
 
 def both(fn, *a, **k):
-    return getattr(jsyn, fn)(*a, **k), getattr(psyn, fn)(*a, **k)
+    return getattr(jsyn, fn)(*a, **k), getattr(psyn, fn)(*a, device="cpu", **k)
 
 
 def compare(js, ps, w, h, kw, bg=(0.0, 0.0, 0.0), ewa_mode="inria"):
@@ -74,7 +74,7 @@ def test_cube_matches_jax_and_golden():
 
 
 def test_render_returns_the_image():
-    ps = psyn.random_scene(50, seed=1)
+    ps = psyn.random_scene(50, seed=1, device="cpu")
     cam = look_at_camera(*CAM, fov=70.0, width=32, height=24)
     with torch.no_grad():
         img = render(*ps.render_args(), cam, cfg=pcfg.RenderConfig(max_pairs=5_000))
@@ -110,5 +110,20 @@ def test_cli_fails_loudly_without_gpu_and_on_unported_flags(tmp_path):
             render_cli.main(base)
     with pytest.raises(NotImplementedError, match="shard"):
         render_cli.main(base + ["--device", "cpu", "--shard"])
-    with pytest.raises(NotImplementedError, match="mxu"):
-        render_cli.main(base + ["--device", "cpu", "--blend", "mxu"])
+
+
+def test_cli_blend_mxu_matches_vpu(tmp_path):
+    """--blend mxu reaches the blend and stays within 5e-4 of --blend vpu
+    at the production tiling (the bound of tests/test_cli.py:90; no lower
+    bound: the two may agree exactly)."""
+    raws = {}
+    for mode in ("vpu", "mxu"):
+        raw = tmp_path / f"{mode}.npy"
+        assert render_cli.main([
+            "--synthetic", "2000", "--res", "96x64", "--exp_N", "1",
+            "--max-pairs", "50000", "--tile", "32", "--pack", "none",
+            "--blend", mode, "--device", "cpu", "--save-raw", str(raw),
+            "--out", str(tmp_path)]) == 0
+        raws[mode] = np.load(raw)
+    assert raws["mxu"].max() > 0.05
+    assert float(np.abs(raws["vpu"] - raws["mxu"]).max()) < 5e-4

@@ -107,7 +107,7 @@ def test_adam_matches_optax_on_the_same_gradients():
 
 def test_params_conversions_match_jax():
     jscene = jrandom_scene(50, seed=3)
-    scene = random_scene(50, seed=3)
+    scene = random_scene(50, seed=3, device="cpu")
     jp, pp = jscene.to_params(), scene.to_params()
     for name, a, b in zip(pg.GaussianParams._fields, pp, jp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
@@ -133,7 +133,7 @@ def test_fit_tiny_scene():
     cam = look_at_camera((2.5, -2.2, 1.8), (0, 0, 0), (0, 0, 1), fov=70.0,
                          width=48, height=32)
     cfg = RenderConfig(max_pairs=8192)
-    scene = random_scene(32, seed=5)
+    scene = random_scene(32, seed=5, device="cpu")
     with torch.no_grad():
         target = render(*scene.render_args(), cam, cfg=cfg)
     start = scene.to_params()

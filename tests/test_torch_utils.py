@@ -246,26 +246,51 @@ def test_scene_containers_match_jax():
 def test_synthetic_scenes_bit_identical(kind):
     if kind == "random":
         js = jsyn.random_scene(500, seed=9, extent=2.0, scale_range=(0.02, 0.1))
-        ps = psyn.random_scene(500, seed=9, extent=2.0, scale_range=(0.02, 0.1))
+        ps = psyn.random_scene(500, seed=9, extent=2.0, scale_range=(0.02, 0.1),
+                               device="cpu")
     else:
         js = jsyn.create_cube_scene(nx=5, scale=0.07, opacity=0.85)
-        ps = psyn.create_cube_scene(nx=5, scale=0.07, opacity=0.85)
+        ps = psyn.create_cube_scene(nx=5, scale=0.07, opacity=0.85,
+                                    device="cpu")
     for a, b in zip(ps, js):
         assert a.dtype == torch.float32
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("build", ["random_scene", "create_cube_scene",
+                                   "load_ply", "projection_matrix"])
+def test_builders_default_to_the_card(tmp_path, build):
+    """The loaders and builders place what they build on the card unless
+    asked for the CPU; without a GPU they raise rather than quietly build
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default is honoured, not refused")
+    path = tmp_path / "s.ply"
+    pply.save_ply(psyn.random_scene(4, seed=2, device="cpu"), path)
+    calls = {
+        "random_scene": lambda **k: psyn.random_scene(4, seed=2, **k),
+        "create_cube_scene": lambda **k: psyn.create_cube_scene(nx=2, **k),
+        "load_ply": lambda **k: pply.load_ply(path, **k),
+        "projection_matrix": lambda **k: pcam.projection_matrix(0.5, 0.4, **k),
+    }
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[build]()
+    out = calls[build](device="cpu")
+    for x in (out if isinstance(out, tuple) else (out,)):
+        assert x.device.type == "cpu"
+
+
 @pytest.mark.parametrize("fmt", ["binary", "ascii"])
 def test_ply_round_trip_matches_jax(tmp_path, fmt):
-    ps = psyn.random_scene(40, seed=2)
+    ps = psyn.random_scene(40, seed=2, device="cpu")
     path = tmp_path / "s.ply"
     pply.save_ply(ps, path, fmt=fmt)
     js = jply.load_ply(str(path), use_native=False)
-    back = pply.load_ply(path)
+    back = pply.load_ply(path, device="cpu")
     for a, b, c in zip(back, js, ps):
         close(a, b, atol=1e-6)
         close(a, c.numpy(), rtol=1e-5, atol=1e-6)
-    raw = pply.load_ply(path, apply_activations=False)
+    raw = pply.load_ply(path, apply_activations=False, device="cpu")
     jraw = jply.load_ply(str(path), apply_activations=False, use_native=False)
     for a, b in zip(raw, jraw):
         close(a, b, rtol=0, atol=0)
