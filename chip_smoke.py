@@ -21,21 +21,28 @@ PyTorch version, and drives the port's render and training paths end to end:
   4. backward kernels against plain versions at phase 1's scale and
      settings: the backward blend against ``rasterize_backward_reference``
      on a random residual, the segment-sum in f32 and bf16 against
-     ``index_add_``; each kernel run twice must give the same bits;
+     ``index_add_`` and its first pass (the segment starts) against
+     ``segment_starts_reference`` bit for bit, first on adversarial sorted
+     ids (one id of 100K rows, empty ids at both ends, ids -1 and >= n_out
+     with NaN rows, n_out = 1, every row dropped, no rows); each kernel run
+     twice must give the same bits;
   5. the differentiable slice at phase 3's size: loss = image sum, backward
      to all five gaussian groups and the background, in f32 and with the
      bf16 gradient reduction; stage by stage against the plain versions;
-     the forward+backward frame timed over chained reps; then five training
-     steps with ``make_train_step``;
+     the backward blend at each number of pixels a thread (1, 2, 4) held
+     and timed; the forward+backward frame timed over chained reps; then
+     five training steps with ``make_train_step``;
   6. the production slice: first phases 1 and 4 again with
      ``blend_quad="mxu"``; then ``bench.py``'s headline configuration (tile 32,
      no-pack, cull, trim, fused sort, bf16 payload and gradient reduction,
      ``blend_quad="mxu"``) through ``bench_cuda.run_config``'s scene and
      frame at 2M gaussians and 1920x1080: one forward + backward frame with
      its launch counts (no vpu blend), the mxu blend kernels against their
-     plain versions on the frame's payload and residual, the five groups'
-     gradients against the all-plain backward, the mxu image against the
-     vpu image, the timed frames and five training steps; the north star
+     plain versions on the frame's payload and residual (the backward
+     blend at each number of pixels a thread), the five groups' gradients
+     against the all-plain backward, the mxu image against the vpu image,
+     the segment-sum at the frame's rows (its longest segment logged), the
+     timed frames and five training steps; the north star
      (6M gaussians) through ``run_config``; and one production frame under
      ``torch.profiler`` (``utils/profiling.frame_profile``).
 
@@ -54,7 +61,9 @@ whose alpha lies that close to alpha_min or the stop is applied by one and
 not the other, which moves its pixel by ~alpha_min; at 2M gaussians and
 1920x1080, 3 pixels of 2,073,600 were over 5e-4 (20 allowed).
 SUM_TOL (segment-sum against index_add_, another summation order): |diff|
-<= 1e-5 x the column's max |sum|.
+<= 1e-5 x the column's max |sum|; on phase 4's adversarial ids against
+index_add_ in float64, whose float32 sum over one id's 100K rows is itself
+~2e-5 off.
 
 Every failed check exits non-zero; with no CUDA device it fails at once. The
 last line of standard output is one JSON object naming the device; the line
@@ -594,10 +603,137 @@ def backward_stages(tag, payload, binned, residual, gx, w, h, cfg, n_out):
         sp = segment_sum_reference(binned.entry_gid, dk.t(), n_out, dtype)
         abs_err, rel = check_sums(f"{tag} segsum {dtype}", s1, sp)
         out[dtype] = (s1, sp, abs_err, rel)
+    key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
+                      torch.full_like(binned.entry_gid, n_out))
+    check_starts(tag, torch.sort(key, stable=True)[0], n_out)
     log(f"{tag}: backward blend same bits twice, max|d|={b2_abs:.3e} "
         f"(rel {err:.2e}); segment-sum same bits twice, f32 max|d|/max|sum|="
-        f"{out['f32'][3]:.2e} bf16 {out['bf16'][3]:.2e}")
+        f"{out['f32'][3]:.2e} bf16 {out['bf16'][3]:.2e}; starts identical")
     return out
+
+
+def check_starts(tag, sorted_ids, n_out):
+    """The segment-sum's first pass against its plain version, bit for
+    bit."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_starts_kernel, segment_starts_reference
+
+    got = segment_starts_kernel(sorted_ids, n_out)
+    want = segment_starts_reference(sorted_ids, n_out)
+    check(torch.equal(got, want), f"{tag}: segment starts kernel != plain in "
+                                  f"{int((got != want).sum())} of {n_out + 1}")
+
+
+def adversarial_segments(dev):
+    """(tag, ascending int32 ids, (L, 9) rows, n_out) that the frames do not
+    reach: one id with 100K rows amid singletons, ids with no rows at both
+    ends, ids -1 and >= n_out with NaN rows, n_out = 1, every row dropped,
+    no rows. Rows alternate between a field-major view (the backward's
+    layout) and row-major."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases = [
+        ("one id of 100K rows amid 100K singletons", torch.cat([
+            torch.arange(0, 200_000, 2, dtype=torch.int32, device=dev),
+            torch.full((100_000,), 123_457, dtype=torch.int32, device=dev)]),
+         300_000),
+        ("no rows for ids [0, 400K) and [600K, 1M)",
+         randint(400_000, 600_000, 300_000), 1_000_000),
+        ("ids -1 and >= n_out with NaN rows", randint(-1, 50_003, 200_000),
+         50_000),
+        ("n_out = 1", randint(-1, 3, 5_000), 1),
+        ("every row dropped", randint(1_000, 1_010, 5_000), 1_000),
+        ("no rows", randint(0, 1, 0), 1_000),
+    ]
+    for i, (tag, ids, n_out) in enumerate(cases):
+        ids = torch.sort(ids)[0]
+        # positive rows: a sum of one sign, so SUM_TOL measures the
+        # kernel's rounding and not the cancellation of a random walk
+        rows = torch.rand((9, ids.shape[0]), generator=gen, device=dev) + 0.5
+        rows[:, (ids < 0) | (ids >= n_out)] = float("nan")
+        yield tag, ids, (rows.t() if i % 2 == 0 else rows.t().contiguous()), n_out
+
+
+def float64_sums(ids, rows, n_out, dtype):
+    """``segment_sum_reference`` with ``index_add_`` in float64: the rows as
+    the reduction adds them (bf16-rounded for "bf16"), summed with no
+    rounding that SUM_TOL could see. A float32 ``index_add_`` over one id's
+    100K rows is itself ~2e-5 of the sum off."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import _round_rows
+
+    keep = (ids >= 0) & (ids < n_out)
+    key = torch.where(keep, ids, torch.full_like(ids, n_out)).to(torch.int64)
+    vals = torch.where(keep[:, None], _round_rows(rows, dtype), 0.0)
+    out = torch.zeros((n_out + 1, rows.shape[1]), dtype=torch.float64,
+                      device=rows.device)
+    return out.index_add_(0, key, vals.double())[:n_out].float()
+
+
+def check_adversarial_segments(name, dev):
+    """K4 in both row types on ``adversarial_segments``: the same bits
+    twice, within SUM_TOL of index_add_ (in float64), and its first pass
+    identical to the plain one."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_starts_reference, segment_sum_kernel
+
+    for tag, ids, rows, n_out in adversarial_segments(dev):
+        tag = f"{name} segsum {tag}"
+        check_starts(tag, ids, n_out)
+        longest = int(segment_starts_reference(ids, n_out).diff().max())
+        parts = []
+        for dtype in ("f32", "bf16"):
+            s1 = segment_sum_kernel(ids, rows, n_out, dtype)
+            s2 = segment_sum_kernel(ids, rows, n_out, dtype)
+            check(torch.equal(s1, s2), f"{tag}: {dtype} kernel is not "
+                                       "deterministic (two runs differ)")
+            _, rel = check_sums(f"{tag} {dtype}", s1,
+                                float64_sums(ids, rows, n_out, dtype))
+            parts.append(f"{dtype} max|d|/max|sum| {rel:.2e}")
+        torch.cuda.synchronize()
+        log(f"{tag}: rows {ids.shape[0]}, n_out {n_out}, longest segment "
+            f"{longest}; starts identical, same bits twice, {'; '.join(parts)}")
+
+
+def backward_variants(tag, payload, binned, residual, gx, w, h, cfg, dp,
+                      reps):
+    """K3 at every number of pixels a thread that the tile admits, each
+    held to GRAD_TOL of the plain backward ``dp`` and timed; logs the
+    times beside the wrapper's choice and returns {pixels a thread: ms}."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import BACKWARD_PIXELS_PER_THREAD, _launch_backward, backward_launch_shape
+
+    tw, th = cfg.tile_wh
+    ranges = (binned.tile_starts, binned.tile_counts)
+    fields = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b")
+    times = {}
+    for per in BACKWARD_PIXELS_PER_THREAD:
+        if (tw * th) % (32 * per):
+            continue
+
+        def launch(per=per):
+            return _launch_backward(payload, *ranges, residual, gx, w, h,
+                                    cfg, per)
+
+        with torch.no_grad():
+            check_fields(f"{tag} {per} px/thread", "d_payload", launch().t(),
+                         dp.t(), fields, rows=binned.entry_gid >= 0)
+            times[per] = cuda_ms(launch, reps)
+    chosen = backward_launch_shape(tw, th)[1]
+    log(f"{tag}: backward blend {cfg.blend_quad} by pixels a thread: "
+        + ", ".join(f"{p}: {ms:.3f} ms" for p, ms in times.items())
+        + f"; the wrapper takes {chosen}")
+    return times
 
 
 def phase4(dev, blend="vpu", name="phase4"):
@@ -605,6 +741,7 @@ def phase4(dev, blend="vpu", name="phase4"):
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
 
+    check_adversarial_segments(name, dev)
     for i, (tag, cfg, cam, scene) in enumerate(test_scenes(dev, blend)):
         tag = f"{name} {tag}"
         w, h = cam.width, cam.height
@@ -707,6 +844,8 @@ def phase5(dev, ctx):
     # times of the kernels and their plain versions at the frame's shapes
     reps = 5
     ranges = (binned.tile_starts, binned.tile_counts)
+    backward_variants("phase5", payload, binned, residual, gx, w, h, cfg, dp,
+                      reps)
     with torch.no_grad():
         b2_ms = cuda_ms(lambda: rasterize_backward(
             payload, *ranges, residual, gx, w, h, cfg), reps)
@@ -862,7 +1001,7 @@ def phase6(dev):
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
-    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_starts_reference, segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
     from luisacomputegaussiansplatting_tpu_torch.utils.profiling import frame_profile, fwd_bwd_frame
 
@@ -952,6 +1091,9 @@ def phase6(dev):
         st = backward_stages("phase6 mxu", payload, binned, residual, gx, w,
                              h, cfg, n)
     dk, dp, b3_abs, _b3_rel, b3_plain = st["b2"]
+    k4_err = st["bf16"][2]
+    backward_variants("phase6 mxu", payload, binned, residual, gx, w, h, cfg,
+                      dp, 5)
 
     # the five groups' gradients through the all-plain backward, with the
     # frame's bf16 reduction
@@ -998,13 +1140,27 @@ def phase6(dev):
         n_valid = int((sorted_key < n).sum())
         k4_ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
                                                    "bf16"), reps)
+        k4_plain = cuda_ms(lambda: segment_sum_reference(
+            sorted_key, rows_t, n, "bf16"), reps)
+        lib_rows = torch.where((sorted_key < n)[:, None],
+                               rows_t.to(torch.bfloat16).float(), 0.0)
+        key64 = sorted_key.to(torch.int64)
+        acc = torch.zeros((n + 1, 9), device=dev)
+        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
+        seg_len = segment_starts_reference(sorted_key, n).diff()
+        longest = int(seg_len.max())
+        n_long = int((seg_len > 32).sum())
+        n_ids = int((seg_len > 0).sum())
+        del lib_rows, key64, acc, seg_len
     k1_bound = bound(n * 28 + cfg.max_pairs * 12,
                      cfg.max_pairs * n.bit_length())
     k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
     log(f"phase6: expansion kernel {k1_ms:.3f} ms (bound {k1_bound[0]:.3f} "
         f"{k1_bound[1]}); segment-sum kernel bf16 {k4_ms:.3f} ms (bound "
-        f"{k4_bound[0]:.3f} {k4_bound[1]}), rows summed {n_valid} of "
-        f"{key.shape[0]}")
+        f"{k4_bound[0]:.3f} {k4_bound[1]}; plain {k4_plain:.3f}, index_add_ "
+        f"{k4_lib:.3f}), rows summed {n_valid} of {key.shape[0]}")
+    log(f"phase6: segments: {n_ids} of {n} ids have rows; the longest has "
+        f"{longest} rows; {n_long} have more than 32 (summed by a warp)")
     log(f"phase6: forward frame median of 5 = {statistics.median(fwd):.3f} "
         f"ms (all: {' '.join(f'{v:.3f}' for v in fwd)})")
     log(f"phase6: mxu blend kernel {k2_ms:.3f} ms vs plain {k2_plain:.3f} "
@@ -1077,6 +1233,12 @@ def phase6(dev):
          "max_abs_err": b3_abs, "ms": k3_ms, "plain_ms": b3_plain,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None},
+        {"name": "segment_sum_bf16_production", "route": "cuda",
+         "source": f"{PKG}/segsum.cu",
+         "replaces": f"{JAX_OPS}/segsum.py:129",
+         "launches": launches["segsum_bf16"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": k4_lib},
     ]
 
 

@@ -37,13 +37,31 @@ KERNEL = KernelLib("rasterize", {
 BACKWARD_KERNEL = KernelLib("rasterize_backward", {
     "rasterize_backward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _p,
-         _p],
+        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f,
+         _p, _p],
     ),
 }, variants=BLEND_QUADS)
 
-#: one thread per pixel of a tile, one block per tile
+#: one block per tile; the forward kernel runs one thread per pixel
 MAX_TILE_PIXELS = 1024
+#: pixels a thread of the backward kernel may own (its template instances)
+BACKWARD_PIXELS_PER_THREAD = (4, 2, 1)
+
+
+def backward_launch_shape(tile_w: int, tile_h: int) -> tuple:
+    """(threads a block, pixels a thread) of the backward kernel for a tile:
+    the most pixels a thread (4 or 2) that leave the block at least four
+    whole warps, else one pixel a thread (the fastest choice at tile 16 and
+    32 on the H100, PERF.md). The tile must have a multiple of 32 pixels,
+    at most ``MAX_TILE_PIXELS``."""
+    pix = tile_w * tile_h
+    if tile_w < 1 or tile_h < 1 or pix % 32 or pix > MAX_TILE_PIXELS:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the backward kernel needs "
+                         f"a multiple of 32 pixels, at most {MAX_TILE_PIXELS}")
+    for per_thread in BACKWARD_PIXELS_PER_THREAD[:-1]:
+        if pix % (32 * per_thread) == 0 and pix // per_thread >= 128:
+            return pix // per_thread, per_thread
+    return pix, 1
 
 
 def _check_launch_args(fn: str, payload, tile_starts, tile_counts,
@@ -126,13 +144,24 @@ def rasterize_backward(payload, tile_starts, tile_counts, residual,
         return rasterize_backward_reference(payload, tile_starts, tile_counts,
                                             residual, grid_x, width, height,
                                             cfg)
+    return _launch_backward(payload, tile_starts, tile_counts, residual,
+                            grid_x, width, height, cfg,
+                            backward_launch_shape(*cfg.tile_wh)[1])
+
+
+def _launch_backward(payload, tile_starts, tile_counts, residual,
+                     grid_x: int, width: int, height: int, cfg: RenderConfig,
+                     pixels_per_thread: int):
+    """``rasterize_backward``'s launch with a given number of pixels a
+    thread (``chip_smoke.py`` times the other choices with it)."""
     tw, th = _check_launch_args("rasterize_backward", payload, tile_starts,
                                 tile_counts, cfg)
     pix = tw * th
     num_tiles = tile_starts.shape[0]
-    if pix % 32:
-        raise ValueError(f"tile {tw}x{th}: the backward kernel needs a "
-                         "multiple of 32 pixels")
+    if pixels_per_thread not in BACKWARD_PIXELS_PER_THREAD \
+            or pix % (32 * pixels_per_thread):
+        raise ValueError(f"tile {tw}x{th}: {pixels_per_thread} pixels a "
+                         "thread do not make whole warps")
     require_cuda_tensors("rasterize_backward", payload, residual)
     if residual.dtype != torch.float32 or residual.shape != (num_tiles, pix, 8):
         raise ValueError(f"residual must be ({num_tiles}, {pix}, 8) float32")
@@ -146,8 +175,9 @@ def rasterize_backward(payload, tile_starts, tile_counts, residual,
         err = lib.rasterize_backward_launch(
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), residual.data_ptr(), num_tiles, grid_x,
-            width, height, tw, th, _mxu(cfg), cfg.alpha_max, cfg.alpha_min,
-            cfg.transmittance_eps, POWER_GUARD, grads.data_ptr(), stream,
+            width, height, tw, th, pixels_per_thread, _mxu(cfg),
+            cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps, POWER_GUARD,
+            grads.data_ptr(), stream,
         )
     BACKWARD_KERNEL.check(err, "rasterize_backward_launch")
     BACKWARD_KERNEL.launched(cfg.blend_quad)

@@ -5,8 +5,10 @@ This is the backward of the payload gather: the per-entry payload gradients
 are summed per gaussian. On CUDA tensors the rows are sorted by id with
 ``torch.sort`` (a CUB radix sort, the library op the JAX package's
 ``lax.sort`` is), gathered once, and summed by the hand-written kernel
-``csrc/segsum.cu``: one warp per output id, no float atomics, the same bits
-on every run. ``dtype="bf16"`` rounds every row value to bf16 (round to
+``csrc/segsum.cu`` in two passes: the segment starts of the sorted ids (the
+plain version of that pass is :func:`segment_starts_reference`), then one
+thread per output id over its rows. No float atomics, the same bits on
+every run. ``dtype="bf16"`` rounds every row value to bf16 (round to
 nearest even) before it is added; the sums stay float32. CPU tensors take
 the plain version, ``index_add_`` into a zeroed table.
 
@@ -35,8 +37,9 @@ METHODS = ("ride", "rowgather")
 #: rows (replaces ``_segsum_kernel``) and rows rounded to "bf16" (replaces
 #: ``_segsum_kernel_packed``)
 KERNEL = KernelLib("segsum", {
-    "segsum_launch": (
-        ctypes.c_int, [_p, _i64, _p, _i64, _i64, _i, _i64, _i, _p, _p],
+    "segsum_starts_launch": (ctypes.c_int, [_p, _i64, _i64, _p, _p]),
+    "segsum_sums_launch": (
+        ctypes.c_int, [_p, _p, _i64, _i64, _i, _i64, _i, _p, _p],
     ),
 }, variants=DTYPES)
 
@@ -70,16 +73,58 @@ def segment_sum_reference(ids, rows, n_out: int, dtype: str = "f32"):
     return out.index_add_(0, key, vals.to(torch.float32))[:n_out]
 
 
+def segment_starts_reference(sorted_ids, n_out: int):
+    """The plain version of the kernel's first pass: (n_out + 1,) int32,
+    entry g the first row of the ascending ``sorted_ids`` whose id is >= g,
+    so the rows of id g are [starts[g], starts[g + 1]). Ids < 0 lie before
+    starts[0] and ids >= n_out from starts[n_out] on: no range holds them."""
+    bounds = torch.arange(n_out + 1, dtype=sorted_ids.dtype,
+                          device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids, bounds, side="left",
+                              out_int32=True)
+
+
+def _check_sorted_ids(fn: str, sorted_ids, n_out: int) -> None:
+    require_cuda_tensors(fn, sorted_ids)
+    if sorted_ids.dtype != torch.int32 or sorted_ids.dim() != 1:
+        raise ValueError(f"{fn}: ids must be (L,) int32")
+    if not 0 <= n_out < 2**31 - 1:
+        raise ValueError(f"{fn}: n_out {n_out} out of range")
+
+
+def _launch_starts(lib, sorted_ids, n_out: int, stream):
+    starts = torch.empty(n_out + 1, dtype=torch.int32,
+                         device=sorted_ids.device)
+    err = lib.segsum_starts_launch(sorted_ids.data_ptr(), sorted_ids.shape[0],
+                                   n_out, starts.data_ptr(), stream)
+    KERNEL.check(err, "segsum_starts_launch")
+    return starts
+
+
+def segment_starts_kernel(sorted_ids, n_out: int):
+    """The kernel's first pass alone (for checking it against
+    :func:`segment_starts_reference`); not counted as a launch of the
+    segment-sum, which :func:`segment_sum_kernel` counts once per
+    reduction."""
+    _check_sorted_ids("segment_starts_kernel", sorted_ids, n_out)
+    lib = KERNEL.lib()
+    dev = sorted_ids.device
+    with torch.cuda.device(dev):
+        return _launch_starts(lib, sorted_ids, n_out,
+                              torch.cuda.current_stream(dev).cuda_stream)
+
+
 def segment_sum_kernel(sorted_ids, rows, n_out: int, dtype: str = "f32"):
-    """Launch ``csrc/segsum.cu`` on ascending int32 ids and (L, cols) float32
-    rows of any strides (a transposed field-major view needs no copy)."""
-    require_cuda_tensors("segment_sum_kernel", sorted_ids)
+    """Launch ``csrc/segsum.cu`` (its two passes, counted as one launch of
+    ``dtype``) on ascending int32 ids and (L, cols) float32 rows of any
+    strides (a transposed field-major view needs no copy)."""
+    _check_sorted_ids("segment_sum_kernel", sorted_ids, n_out)
     n_rows, cols = rows.shape
     _check(dtype, cols)
     if rows.device != sorted_ids.device or rows.dtype != torch.float32:
         raise ValueError("segment_sum_kernel: rows must be float32 on the ids' "
                          "device")
-    if sorted_ids.dtype != torch.int32 or sorted_ids.shape != (n_rows,):
+    if sorted_ids.shape != (n_rows,):
         raise ValueError(f"segment_sum_kernel: ids must be ({n_rows},) int32")
     dev = rows.device
     out = torch.empty((n_out, cols), dtype=torch.float32, device=dev)
@@ -88,12 +133,13 @@ def segment_sum_kernel(sorted_ids, rows, n_out: int, dtype: str = "f32"):
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.segsum_launch(
-            sorted_ids.data_ptr(), n_rows, rows.data_ptr(), rows.stride(0),
+        starts = _launch_starts(lib, sorted_ids, n_out, stream)
+        err = lib.segsum_sums_launch(
+            starts.data_ptr(), rows.data_ptr(), rows.stride(0),
             rows.stride(1), cols, n_out, int(dtype == "bf16"), out.data_ptr(),
             stream,
         )
-    KERNEL.check(err, "segsum_launch")
+    KERNEL.check(err, "segsum_sums_launch")
     KERNEL.launched(dtype)
     return out
 

@@ -189,3 +189,47 @@ def test_backward_wrapper_rejects_unported_and_non_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         pr.rasterize_backward(payload.to("meta"), z.to("meta"), z.to("meta"),
                               res.to("meta"), 1, 16, 16, pcfg.RenderConfig())
+
+
+def accepted_tiles():
+    """Every tile the backward kernel takes: a multiple of 32 pixels, at
+    most 1024."""
+    return [(w, h) for w in range(1, pr.MAX_TILE_PIXELS + 1)
+            for h in range(1, pr.MAX_TILE_PIXELS // w + 1) if (w * h) % 32 == 0]
+
+
+def test_backward_launch_shape_covers_every_accepted_tile():
+    """Whole warps, the kernel's instances (1, 2 or 4 pixels a thread, at
+    most 1024 / P threads), four warps or more where a thread takes several
+    pixels, and several pixels a thread wherever four warps allow it."""
+    tiles = accepted_tiles()
+    assert len(tiles) > 100
+    for w, h in tiles:
+        threads, per_thread = pr.backward_launch_shape(w, h)
+        assert per_thread in pr.BACKWARD_PIXELS_PER_THREAD
+        assert threads * per_thread == w * h
+        assert threads % 32 == 0
+        assert threads <= pr.MAX_TILE_PIXELS // per_thread
+        assert threads >= 128 or per_thread == 1
+        if w * h % 64 == 0 and w * h >= 256:
+            assert per_thread > 1
+
+
+@pytest.mark.parametrize("tile_w,tile_h,threads,per_thread", [
+    (16, 16, 128, 2),
+    (32, 32, 256, 4),
+    (32, 16, 128, 4),
+    (16, 8, 128, 1),
+    (8, 4, 32, 1),
+    (32, 3, 96, 1),
+])
+def test_backward_launch_shape_of_common_tiles(tile_w, tile_h, threads,
+                                               per_thread):
+    assert pr.backward_launch_shape(tile_w, tile_h) == (threads, per_thread)
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [(10, 10), (64, 32), (33, 32),
+                                           (0, 32)])
+def test_backward_launch_shape_rejects_tiles_never_taken(tile_w, tile_h):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        pr.backward_launch_shape(tile_w, tile_h)

@@ -79,6 +79,66 @@ def test_huge_id_gap_multi_window():
     assert torch.all(out[1:n_out - 1] == 0.0)
 
 
+def _ascending(*parts):
+    return np.sort(np.concatenate(parts)).astype(np.int32)
+
+
+_rng = np.random.default_rng(21)
+#: (ascending ids, n_out) for the segment starts: the clustered ids of the
+#: segment-sum tests, then ids < 0, ids >= n_out, ids with no rows at both
+#: ends, and no rows at all
+STARTS_CASES = {
+    "clustered0": (sorted_ids(0, 300, 2 * E, 100), 300),
+    "clustered1": (sorted_ids(1, 300, 2 * E, 100), 300),
+    "negative": (_ascending(np.full(7, -1), np.full(3, -5),
+                            _rng.integers(0, 40, 200)), 40),
+    "beyond": (_ascending(_rng.integers(0, 40, 200), np.full(9, 40),
+                          np.full(4, 57)), 40),
+    "empty_ends": (_ascending(_rng.integers(20, 44, 300)), 64),
+    "zero_rows": (np.zeros(0, np.int32), 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STARTS_CASES))
+def test_segment_starts_match_jnp_searchsorted(case):
+    """The plain version of the kernel's first pass is the lower bound of
+    every id in [0, n_out], as the JAX kernel's window cuts take it; the
+    rows of id g are exactly [starts[g], starts[g + 1])."""
+    ids, n_out = STARTS_CASES[case]
+    want = jnp.searchsorted(jnp.asarray(ids),
+                            jnp.arange(n_out + 1, dtype=jnp.int32),
+                            side="left")
+    got = pseg.segment_starts_reference(t(ids), n_out)
+    assert got.dtype == torch.int32 and got.shape == (n_out + 1,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    starts = got.numpy()
+    for g in range(n_out):
+        assert np.all(ids[starts[g]:starts[g + 1]] == g)
+    assert starts[n_out] - starts[0] == int(((ids >= 0) & (ids < n_out)).sum())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_every_row_dropped_matches_jax(dtype):
+    """Every id is -1 (NaN rows, dropped by the reduction) or, sorted, the
+    drop bin n_out: every sum is exactly zero, as in the JAX package."""
+    n_out, length = 50, 3000
+    gid = np.full(length, -1, np.int32)
+    rows = np.full((length, 9), np.nan, np.float32)
+    want = jseg.reduce_fields_by_id(
+        jnp.asarray(gid), tuple(jnp.asarray(rows[:, i]) for i in range(9)),
+        n_out, interpret=True, dtype=dtype)
+    got = pseg.reduce_fields_by_id(t(gid), t(rows.T), n_out, dtype=dtype)
+    close(got, want)
+    assert torch.all(got == 0)
+    binned = np.full(length, n_out, np.int32)
+    finite = np.random.default_rng(5).normal(size=(length, 9)).astype(np.float32)
+    want = jseg.segment_sum_sorted(jnp.asarray(binned), jnp.asarray(finite),
+                                   n_out, interpret=True)
+    got = pseg.segment_sum_sorted(t(binned), t(finite), n_out, dtype)
+    close(got, want)
+    assert torch.all(got == 0)
+
+
 def invalid_rows(seed, n_out, length):
     """Unsorted ids in [-1, n_out) and normal rows, NaN where the id is -1
     (garbage that must not leak into any sum)."""
