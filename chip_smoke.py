@@ -2,22 +2,29 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare ROOT
 
 Builds the hand-written kernels from ``luisacomputegaussiansplatting_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each against its plain
 PyTorch version, and drives the port's render and training paths end to end:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions and the
-     kernel build time;
-  1. forward kernels against plain versions at test scale: a 20K-gaussian
-     random scene at 320x240 over tile 16, 32 and 32x16, both pack modes,
-     cull off and on — the expansion kernel must equal the plain expansion
-     bit for bit, the blend kernel must agree with the plain rasterizer
-     within BLEND_TOL below;
+     kernel build time, with ptxas' registers and spills of every kernel;
+  1. forward kernels against plain versions at test scale: first the
+     expansion on adversarial fan-outs (``adversarial_fanouts``: empty
+     gaussians at both ends and in runs, one gaussian over every tile,
+     ``max_pairs`` inside a rect row, a saturated total, no tile at all),
+     cull off and on; then a 20K-gaussian random scene at 320x240 over tile
+     16, 32 and 32x16, both pack modes, cull off and on — the expansion
+     kernel must equal the plain expansion bit for bit, the blend kernel
+     must agree with the plain rasterizer within BLEND_TOL below, at every
+     number of pixels a thread, each instance the same bits;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063;
   3. the forward slice: a 2M-gaussian random scene at 1920x1080 through
      ``render_aux`` with the strict-parity config, re-run stage by stage with
-     the plain versions, and timed;
+     the plain versions, and timed (the forward blend at each number of
+     pixels a thread; the expansion's prefix sums and kernel apart); the
+     digest of the forward blend's colour and T;
   4. backward kernels against plain versions at phase 1's scale and
      settings: the backward blend against ``rasterize_backward_reference``
      on a random residual, the segment-sum in f32 and bf16 against
@@ -29,25 +36,30 @@ PyTorch version, and drives the port's render and training paths end to end:
   5. the differentiable slice at phase 3's size: loss = image sum, backward
      to all five gaussian groups and the background, in f32 and with the
      bf16 gradient reduction; stage by stage against the plain versions;
-     the backward blend at each number of pixels a thread (1, 2, 4) held
-     and timed; the forward+backward frame timed over chained reps; then
-     five training steps with ``make_train_step``;
+     the forward and the backward blend at each number of pixels a thread
+     held and timed; the forward+backward frame timed over chained reps;
+     then five training steps with ``make_train_step``;
   6. the production slice: first phases 1 and 4 again with
      ``blend_quad="mxu"``; then ``bench.py``'s headline configuration (tile 32,
      no-pack, cull, trim, fused sort, bf16 payload and gradient reduction,
      ``blend_quad="mxu"``) through ``bench_cuda.run_config``'s scene and
      frame at 2M gaussians and 1920x1080: one forward + backward frame with
      its launch counts (no vpu blend), the mxu blend kernels against their
-     plain versions on the frame's payload and residual (the backward
-     blend at each number of pixels a thread), the five groups' gradients
-     against the all-plain backward, the mxu image against the vpu image,
-     the segment-sum at the frame's rows (its longest segment logged), the
-     timed frames and five training steps; the north star
-     (6M gaussians) through ``run_config``; and one production frame under
-     ``torch.profiler`` (``utils/profiling.frame_profile``).
+     plain versions on the frame's payload and residual (each at every
+     number of pixels a thread; the forward's digest), the five groups'
+     gradients against the all-plain backward, the mxu image against the
+     vpu image, the expansion and the segment-sum at the frame's shapes
+     (the longest segment logged), the timed frames and five training
+     steps; the north star (6M gaussians) through ``run_config``; and one
+     production frame under ``torch.profiler``
+     (``utils/profiling.frame_profile``).
 
 Every phase runs, in order; to rehearse one, import this module and call
-its ``phaseN`` function.
+its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line: the
+forward blend's digests and device times and the expansion's device times
+on phase 3's and phase 6's frames, computed by the port package of the tree
+at ROOT (to hold another tree's kernels to this one's bits and time both
+with the same code).
 
 BLEND_TOL: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of the
 pixels (transmittance-stop flips), which stay <= 2e-2.
@@ -93,6 +105,8 @@ SUM_TOL = 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "luisacomputegaussiansplatting_tpu_torch/csrc"
 JAX_OPS = "luisacomputegaussiansplatting_tpu/ops"
+# device_ms' spin before each timed call: ~2.5 ms at the H100's ~1.98 GHz
+SPIN_CYCLES = 5_000_000
 
 # published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +140,34 @@ def cuda_ms(fn, reps):
     from luisacomputegaussiansplatting_tpu_torch.utils.profiling import Timer
 
     return Timer(warmup=1, reps=reps).time(fn) * 1e3
+
+
+def device_ms(fn, reps=5):
+    """Mean device milliseconds of one ``fn()`` over ``reps`` calls after
+    one: CUDA events around the call alone, without the host time of its
+    wrapper (which ``cuda_ms`` includes where the host is the slower). Each
+    call is queued behind a spin kernel (``torch.cuda._sleep``, ~2.5 ms),
+    so the device runs the call's kernels back to back however long the
+    host takes to launch them; the run fails if the spin ended before the
+    host had queued the call, whose time would then hold the host's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        check(queued_in_time, "device_ms: the spin kernel ended before the "
+                              "call was queued")
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def timed_once(fn):
@@ -382,6 +424,165 @@ def bin_and_payload(scene, cam, cfg, expansion=None):
     return s.proj, s.grid, s.binned, s.payload
 
 
+def adversarial_fanouts(grid_x=120, grid_y=68, n=4000, seed=5):
+    """(tag, fields, max_pairs) of projected scenes, as numpy arrays in the
+    field order of ``ProjectedGaussians`` plus the opacities, whose fan-outs
+    the frames do not reach: gaussians with no tile at both ends and in runs
+    of 1 to 100 (whole warps of them included), one gaussian over every tile
+    of the grid, ``max_pairs`` cutting a gaussian in the middle of a rect
+    row, an AABB total past 2^31 - 1 (saturated), and no tile at all. Each
+    rect is a box of tiles inside the grid with its mean inside it and a
+    conic whose reach is about the box."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tw = th = 16
+
+    def small_rects(k):
+        w = rng.integers(1, 7, k)
+        h = rng.integers(1, 7, k)
+        x0 = rng.integers(0, grid_x - 6, k)
+        y0 = rng.integers(0, grid_y - 6, k)
+        return np.stack([x0, y0, x0 + w, y0 + h], 1)
+
+    def scene(rects):
+        rects = np.asarray(rects, dtype=np.int64)
+        k = rects.shape[0]
+        area = (rects[:, 2] - rects[:, 0]) * (rects[:, 3] - rects[:, 1])
+        wpx = np.maximum(rects[:, 2] - rects[:, 0], 1) * tw
+        hpx = np.maximum(rects[:, 3] - rects[:, 1], 1) * th
+        mx = rects[:, 0] * tw + rng.random(k) * wpx
+        my = rects[:, 1] * th + rng.random(k) * hpx
+        sx, sy = wpx / 6.0, hpx / 6.0
+        rho = rng.uniform(-0.6, 0.6, k)
+        det = (sx * sy) ** 2 * (1 - rho**2)
+        conic = np.stack([sy**2 / det, -rho * sx * sy / det, sx**2 / det], 1)
+        radius = np.where(area > 0, np.ceil(3 * np.maximum(sx, sy)), 0)
+        return [
+            np.stack([mx, my], 1).astype(np.float32),           # means2d
+            rng.uniform(0.5, 20.0, k).astype(np.float32),       # depth
+            conic.astype(np.float32),                           # conic
+            radius.astype(np.int32),                            # radius
+            rects[:, :2].astype(np.int32),                      # rect_min
+            rects[:, 2:].astype(np.int32),                      # rect_max
+            area.astype(np.int32),                              # tiles_touched
+            area > 0,                                           # valid
+            rng.uniform(0.005, 1.0, k).astype(np.float32),      # opacities
+        ]
+
+    def total(fields):
+        return int(fields[6].astype(np.int64).sum())
+
+    rects = small_rects(n)
+    empty = np.zeros(n, dtype=bool)
+    empty[:40] = empty[-40:] = True
+    at = 100
+    for run in (1, 5, 31, 32, 33, 64, 100):
+        empty[at:at + run] = True
+        at += run + 37
+    rects[empty, 2:] = rects[empty, :2]
+    fields = scene(rects)
+    yield "no tiles at both ends and in runs", fields, total(fields) + 1000
+
+    rects = small_rects(n)
+    rects[n // 2] = (0, 0, grid_x, grid_y)
+    fields = scene(rects)
+    yield "one gaussian over every tile", fields, total(fields) + 500
+    start = int(fields[6][: n // 2].astype(np.int64).sum())
+    yield ("max_pairs in the middle of a rect row", fields,
+           start + 3 * grid_x + 5)
+
+    rects = small_rects(n)
+    rects[-2:] = (0, 0, 2**15, 2**15)  # 2^30 tiles each
+    fields = scene(rects)
+    yield ("a saturated total", fields,
+           int(fields[6][:-2].astype(np.int64).sum()) + 3000)
+
+    rects = small_rects(64)
+    rects[:, 2:] = rects[:, :2]
+    yield "no tile at all", scene(rects), 5000
+
+
+def check_adversarial_fanouts(name, dev):
+    """K1 on ``adversarial_fanouts``, with the cull off and on, bit for bit
+    against the plain expansion (``compare_expansion``); the total
+    saturates where it must."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch import RenderConfig
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import ProjectedGaussians
+
+    gx, gy = 120, 68
+    cfg = RenderConfig()
+    for tag, fields, max_pairs in adversarial_fanouts(gx, gy):
+        proj = ProjectedGaussians(*(torch.from_numpy(f).to(dev)
+                                    for f in fields[:8]))
+        op = torch.from_numpy(fields[8]).to(dev)
+        total = int(fields[6].astype("int64").sum())
+        for cull in (False, True):
+            k, _ = compare_expansion(proj, gx, gx * gy, max_pairs,
+                                     op if cull else None, 16, cfg)
+            want = min(total, 2**31 - 1)
+            check(int(k[3]) == want, f"{name} {tag}: total {int(k[3])} != "
+                                     f"{want}")
+            kept = int((k[2] >= 0).sum())
+            log(f"{name} expansion {tag} cull={cull}: identical to plain; "
+                f"{fields[0].shape[0]} gaussians, total {int(k[3])}, "
+                f"max_pairs {max_pairs}, kept {kept}")
+
+
+def forward_instances(tile_w, tile_h):
+    """The pixels a thread at which K2 can blend a tile: those that make
+    whole warps."""
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import FORWARD_PIXELS_PER_THREAD
+
+    return [per for per in FORWARD_PIXELS_PER_THREAD
+            if per == 1 or (tile_w * tile_h) % (32 * per) == 0]
+
+
+def blend_digest(color, trans):
+    """sha256 (first 16 hex digits) of a forward blend's colour and T
+    bytes, to compare two builds of K2 bit for bit across processes."""
+    import hashlib
+
+    h = hashlib.sha256(color.contiguous().cpu().numpy().tobytes())
+    h.update(trans.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def forward_variants(tag, payload, ranges, gx, gy, w, h, cfg, color, trans,
+                     plain, reps):
+    """K2 at every number of pixels a thread that the tile admits: each the
+    same bits as the wrapper's ``color``/``trans``, within BLEND_TOL of the
+    plain forward ``plain`` (colour, T), and, where ``reps``, timed. Logs
+    the times beside the wrapper's choice; returns {pixels a thread: ms}."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import _launch_forward, forward_launch_shape
+
+    tw, th = cfg.tile_wh
+    times = {}
+    for per in forward_instances(tw, th):
+
+        def launch(per=per):
+            return _launch_forward(payload, *ranges, gx, w, h, cfg, per)
+
+        with torch.no_grad():
+            ck, tk = launch()
+            check(torch.equal(ck, color) and torch.equal(tk, trans),
+                  f"{tag}: K2 at {per} px/thread differs from the wrapper's "
+                  "bits")
+            check_blend(f"{tag} {per} px/thread",
+                        *blend_diff(ck, tk, *plain, gx, gy, w, h, cfg.tile_wh))
+            if reps:
+                times[per] = cuda_ms(launch, reps)
+    timed = "".join(f"; {p} px/thread {ms:.3f} ms" for p, ms in times.items())
+    log(f"{tag}: forward blend {cfg.blend_quad} instances "
+        f"{forward_instances(tw, th)} bit-identical{timed}; the wrapper "
+        f"takes {forward_launch_shape(tw, th)[1]}")
+    return times
+
+
 def phase1(dev, blend="vpu", name="phase1"):
     import torch
 
@@ -389,6 +590,8 @@ def phase1(dev, blend="vpu", name="phase1"):
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
 
+    if blend == "vpu":
+        check_adversarial_fanouts(name, dev)
     for tag, cfg, cam, scene in test_scenes(dev, blend):
         tag = f"{name} {tag}"
         w, h = cam.width, cam.height
@@ -413,6 +616,8 @@ def phase1(dev, blend="vpu", name="phase1"):
             f"num_rendered={int(bk.num_rendered)}")
         check_blend(tag, *blend_diff(ck, tk, cp, tp, gx, gy, w, h,
                                      cfg.tile_wh))
+        forward_variants(tag, payload, (bk.tile_starts, bk.tile_counts), gx,
+                         gy, w, h, cfg, ck, tk, (cp, tp), 0)
 
 
 def phase2():
@@ -493,6 +698,10 @@ def phase3(dev):
                                      gx, w, h, cfg)
         blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
         check_blend("phase3", *blend)
+        log(f"phase3: K2 digest {blend_digest(ck, tk)}")
+        forward_variants(
+            "phase3", payload, (bp.tile_starts, bp.tile_counts), gx, gy, w,
+            h, cfg, ck, tk, (cp, tp), 5)
         # the main-path image against the all-plain one
         img_p, t_p = _tiles_to_image(cp, tp, gx, gy, w, h, cfg.tile_wh)
         d = torch.maximum((img - img_p).abs().amax(dim=0),
@@ -503,6 +712,7 @@ def phase3(dev):
         reps = 5
         k1_ms = cuda_ms(lambda: expand_entries_kernel(
             proj, gx, nt, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min), reps)
+        k1_split = expansion_split(proj, gx, nt, cfg.max_pairs, None, cfg)
         k1_plain = cuda_ms(lambda: expand_entries(
             proj, gx, nt, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min), reps)
         k2_ms = cuda_ms(lambda: rasterize_forward(
@@ -518,14 +728,18 @@ def phase3(dev):
         peak = torch.cuda.max_memory_allocated() / 2**30
         evaluated, applied = pair_counts(payload, bp.tile_starts,
                                          bp.tile_counts, gx, w, h, cfg)
+        k2_dev = device_ms(lambda: rasterize_forward(
+            payload, bp.tile_starts, bp.tile_counts, gx, w, h, cfg))
 
     frame_ms = statistics.median(frames)
     log(f"phase3: 2M gaussians 1920x1080 strict-parity: aabb_total={aabb_total} "
         f"num_rendered={num_rendered} capacity={payload.shape[1]}")
     log(f"phase3: frame_ms median of 5 = {frame_ms:.3f} "
         f"(all: {' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
-    log(f"phase3: expansion kernel {k1_ms:.3f} ms vs plain {k1_plain:.3f} ms; "
-        f"blend kernel {k2_ms:.3f} ms vs plain {k2_plain:.3f} ms")
+    log(f"phase3: expansion kernel {k1_ms:.3f} ms (device time: prefix "
+        f"sums {k1_split[0]:.3f}, the kernel alone {k1_split[1]:.3f}) vs "
+        f"plain {k1_plain:.3f} ms; blend kernel {k2_ms:.3f} ms (device time "
+        f"{k2_dev:.3f}) vs plain {k2_plain:.3f} ms")
     log(f"phase3: blend pairs evaluated {evaluated} applied {applied}")
 
     # bounds from this run's inputs: each input read once, each output
@@ -554,6 +768,19 @@ def phase3(dev):
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
     ], context
+
+
+def expansion_split(proj, gx, nt, max_pairs, cull_op, cfg):
+    """(device ms of ``prefix_sums``, device ms of K1's launch on its
+    output): the expansion wrapper's two parts timed apart (``device_ms``),
+    the second the kernel alone."""
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import _launch_expand, prefix_sums
+
+    _, ends, total_f = prefix_sums(proj.tiles_touched)
+    return (device_ms(lambda: prefix_sums(proj.tiles_touched)),
+            device_ms(lambda: _launch_expand(ends, total_f, proj, gx, nt,
+                                             max_pairs, cull_op, cfg.tile_wh,
+                                             cfg.alpha_min)))
 
 
 def random_residual(color, trans, seed):
@@ -766,6 +993,7 @@ def phase5(dev, ctx):
     from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
     from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
     from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
@@ -844,6 +1072,11 @@ def phase5(dev, ctx):
     # times of the kernels and their plain versions at the frame's shapes
     reps = 5
     ranges = (binned.tile_starts, binned.tile_counts)
+    with torch.no_grad():
+        plain_fwd = rasterize_reference(payload, *ranges, gx, w, h, cfg)
+    forward_variants("phase5", payload, ranges, gx, gy, w, h, cfg, color,
+                     trans, plain_fwd, reps)
+    del plain_fwd
     backward_variants("phase5", payload, binned, residual, gx, w, h, cfg, dp,
                       reps)
     with torch.no_grad():
@@ -996,6 +1229,7 @@ def phase6(dev):
 
     import bench_cuda
     from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import expand_entries
     from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
     from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
@@ -1067,6 +1301,9 @@ def phase6(dev):
         cp, tp = rasterize_reference(payload, *ranges, gx, w, h, cfg)
         blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
         check_blend("phase6 mxu", *blend)
+        log(f"phase6: K2 mxu digest {blend_digest(ck, tk)}")
+        forward_variants("phase6 mxu", payload, ranges, gx, gy, w, h, cfg,
+                         ck, tk, (cp, tp), 5)
         cfg_vpu = dataclasses.replace(cfg, blend_quad="vpu")
         cv, tv = rasterize_forward(payload, *ranges, gx, w, h, cfg_vpu)
         d_max, n_over, n_pix = blend_diff(ck, tk, cv, tv, gx, gy, w, h,
@@ -1133,6 +1370,13 @@ def phase6(dev):
         k1_ms = cuda_ms(lambda: expand_entries_kernel(
             proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
             cfg.alpha_min), reps)
+        k1_plain = cuda_ms(lambda: expand_entries(
+            proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
+            cfg.alpha_min), reps)
+        k1_split = expansion_split(proj, gx, gx * gy, cfg.max_pairs, cull_op,
+                                   cfg)
+        k2_dev = device_ms(lambda: rasterize_forward(
+            payload, *ranges, gx, w, h, cfg))
         key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
                           torch.full_like(binned.entry_gid, n))
         sorted_key, perm = torch.sort(key, stable=True)
@@ -1152,19 +1396,21 @@ def phase6(dev):
         n_long = int((seg_len > 32).sum())
         n_ids = int((seg_len > 0).sum())
         del lib_rows, key64, acc, seg_len
-    k1_bound = bound(n * 28 + cfg.max_pairs * 12,
-                     cfg.max_pairs * n.bit_length())
+    # the cull reads 24 more bytes a gaussian and does ~40 flops a slot
+    k1_bound = bound(n * (28 + 24) + cfg.max_pairs * 12, aabb * 40)
     k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
-    log(f"phase6: expansion kernel {k1_ms:.3f} ms (bound {k1_bound[0]:.3f} "
-        f"{k1_bound[1]}); segment-sum kernel bf16 {k4_ms:.3f} ms (bound "
+    log(f"phase6: expansion kernel {k1_ms:.3f} ms (device time: prefix "
+        f"sums {k1_split[0]:.3f}, the kernel alone {k1_split[1]:.3f}; plain "
+        f"{k1_plain:.3f}; bound {k1_bound[0]:.3f} {k1_bound[1]}); "
+        f"segment-sum kernel bf16 {k4_ms:.3f} ms (bound "
         f"{k4_bound[0]:.3f} {k4_bound[1]}; plain {k4_plain:.3f}, index_add_ "
         f"{k4_lib:.3f}), rows summed {n_valid} of {key.shape[0]}")
     log(f"phase6: segments: {n_ids} of {n} ids have rows; the longest has "
         f"{longest} rows; {n_long} have more than 32 (summed by a warp)")
     log(f"phase6: forward frame median of 5 = {statistics.median(fwd):.3f} "
         f"ms (all: {' '.join(f'{v:.3f}' for v in fwd)})")
-    log(f"phase6: mxu blend kernel {k2_ms:.3f} ms vs plain {k2_plain:.3f} "
-        f"ms; mxu backward blend kernel {k3_ms:.3f} ms vs plain "
+    log(f"phase6: mxu blend kernel {k2_ms:.3f} ms (device time {k2_dev:.3f}) "
+        f"vs plain {k2_plain:.3f} ms; mxu backward blend kernel {k3_ms:.3f} ms vs plain "
         f"{b3_plain:.3f} ms; pairs evaluated {evaluated} applied {applied}")
 
     # five training steps at this config, towards the scene's own render
@@ -1220,6 +1466,12 @@ def phase6(dev):
                      evaluated * OPS_PER_PAIR["mxu"]
                      + applied * OPS_PER_APPLIED["backward"])
     return [
+        {"name": "expand_entries_production", "route": "cuda",
+         "source": f"{PKG}/expand.cu",
+         "replaces": f"{JAX_OPS}/expand_pallas.py:137",
+         "launches": launches["expand"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "rasterize_forward_mxu", "route": "cuda",
          "source": f"{PKG}/rasterize.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
@@ -1242,12 +1494,72 @@ def phase6(dev):
     ]
 
 
-def main():
+def tree_record(dev):
+    """K2's digest and device time and the expansion's device times on
+    phase 3's frame (strict: vpu, no cull) and phase 6's (production: mxu,
+    the cull), through whichever port package is first on ``sys.path``:
+    ``--compare ROOT`` runs it on the tree at ROOT, so that two trees are
+    held to the same bits and timed by the same code. The expansion's
+    kernel alone is the device time of its wrapper less that of
+    ``saturated_ends``, the prefix sums that a tree's wrapper runs before
+    its launch (this tree's wrapper runs all of them but the saturation,
+    which its kernel does)."""
+    import torch
+
+    import bench_cuda
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel, saturated_ends
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+
+    out = {}
+    for frame in ("strict", "production"):
+        if frame == "strict":
+            scene, cam, cfg = headline(dev)
+            proj, (gx, gy), b, payload = bin_and_payload(scene, cam, cfg,
+                                                         expansion="xla")
+        else:
+            scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline",
+                                                                dev)
+            proj, (gx, gy), b, payload = bin_and_payload(scene, cam, cfg)
+        cull_op = cull_opacity(scene, cfg)
+        with torch.no_grad():
+
+            def blend():
+                return rasterize_forward(payload, b.tile_starts,
+                                         b.tile_counts, gx, cam.width,
+                                         cam.height, cfg)
+
+            k1 = {"wrapper": device_ms(lambda: expand_entries_kernel(
+                      proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
+                      cfg.alpha_min)),
+                  "saturated_ends": device_ms(
+                      lambda: saturated_ends(proj.tiles_touched))}
+            out[frame] = {"k2_digest": blend_digest(*blend()),
+                          "k2_device_ms": device_ms(blend),
+                          "k1_device_ms": k1}
+        del scene, proj, b, payload, cull_op
+    return out
+
+
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        # K2's digests and the device times only, from the port package of
+        # the tree at argv[1]
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        try:
+            record = tree_record(torch.device("cuda:0"))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"tree": argv[1], **record}))
+        return 0
+    if argv:
+        print("usage: chip_smoke.py [--compare ROOT]", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1281,4 +1593,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

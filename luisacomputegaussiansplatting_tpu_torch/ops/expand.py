@@ -25,7 +25,7 @@ KERNEL = KernelLib("expand", {
     "expand_entries_launch": (
         ctypes.c_int,
         [_p, _p, _p, _p, _p, _p, _p, _p, _i64, _i64, _i, _i, _i, _i, _f,
-         _p, _p, _p, _p],
+         _p, _p, _p, _p, _p],
     ),
 })
 
@@ -64,20 +64,31 @@ def ellipse_tile_reaches(mx, my, ca, cb, cc, op, x0, x1, y0, y1, alpha_min):
     )
 
 
+INT32_MAX = 2**31 - 1
+
+
+def prefix_sums(tiles_touched):
+    """(int32 counts, their int64 inclusive cumsum, their () float32 sum):
+    the torch ops of the slot layout, which the plain expansion
+    (``saturated_ends``) and the kernel's launch share so that both see the
+    same bits."""
+    counts = tiles_touched.to(torch.int32)
+    return (counts, torch.cumsum(counts, 0, dtype=torch.int64),
+            torch.sum(counts.to(torch.float32)))
+
+
 def saturated_ends(tiles_touched):
     """(int64 inclusive cumsum of tiles_touched, () int64 total).
 
     The total is pinned to 2^31 - 1 where an f32 re-sum reaches it, exactly
     as the JAX package guards its int32 cumsum (binning._saturate_total), so
-    both packages raise ``overflow`` on the same scenes."""
-    counts = tiles_touched.to(torch.int32)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = ends[-1] if counts.shape[0] > 0 else ends.new_zeros(())
-    int32_max = 2**31 - 1
-    total_f = torch.sum(counts.to(torch.float32))
-    total = torch.where(total_f >= float(int32_max),
-                        total.new_full((), int32_max), total)
-    return ends, torch.clamp(total, max=int32_max)
+    both packages raise ``overflow`` on the same scenes. ``csrc/expand.cu``
+    computes the same total from the same cumsum and sum."""
+    _, ends, total_f = prefix_sums(tiles_touched)
+    total = ends[-1] if ends.shape[0] > 0 else ends.new_zeros(())
+    total = torch.where(total_f >= float(INT32_MAX),
+                        total.new_full((), INT32_MAX), total)
+    return ends, torch.clamp(total, max=INT32_MAX)
 
 
 def expand_entries_kernel(proj, grid_x: int, num_tiles: int, max_pairs: int,
@@ -90,12 +101,25 @@ def expand_entries_kernel(proj, grid_x: int, num_tiles: int, max_pairs: int,
 
         return expand_entries(proj, grid_x, num_tiles, max_pairs, opacities,
                               tile, alpha_min)
+    _, ends, total_f = prefix_sums(proj.tiles_touched)
+    return _launch_expand(ends, total_f, proj, grid_x, num_tiles, max_pairs,
+                          opacities, tile, alpha_min)
+
+
+def _launch_expand(ends, total_f, proj, grid_x: int, num_tiles: int,
+                   max_pairs: int, opacities, tile, alpha_min: float):
+    """``expand_entries_kernel``'s launch on the output of ``prefix_sums``
+    (``chip_smoke.py`` times the two apart); the kernel saturates the total
+    as ``saturated_ends`` does. ``max_pairs`` is at most 2^31 - 33 (the
+    kernel's slots are int32)."""
+    if not 0 <= max_pairs <= INT32_MAX - 32:
+        raise ValueError(f"expand_entries_kernel: max_pairs {max_pairs} is "
+                         f"not in [0, {INT32_MAX - 32}]")
     tw, th = _tile_wh(tile)
-    ends, total = saturated_ends(proj.tiles_touched)
     rect_min = proj.rect_min.detach().to(torch.int32).contiguous()
     rect_max = proj.rect_max.detach().to(torch.int32).contiguous()
     depth = proj.depth.detach().to(torch.float32).contiguous()
-    tensors = [ends, total, rect_min, rect_max, depth]
+    tensors = [ends, total_f, rect_min, rect_max, depth]
     cull = opacities is not None
     if cull:
         means2d = proj.means2d.detach().to(torch.float32).contiguous()
@@ -115,20 +139,19 @@ def expand_entries_kernel(proj, grid_x: int, num_tiles: int, max_pairs: int,
     out_tile = torch.empty((max_pairs,), dtype=torch.int32, device=dev)
     out_depth = torch.empty((max_pairs,), dtype=torch.float32, device=dev)
     out_gid = torch.empty((max_pairs,), dtype=torch.int32, device=dev)
-    if max_pairs == 0:
-        return out_tile, out_depth, out_gid, total
+    total = torch.empty((), dtype=torch.int64, device=dev)
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.expand_entries_launch(
-            ends.data_ptr(), total.data_ptr(), rect_min.data_ptr(),
+            ends.data_ptr(), total_f.data_ptr(), rect_min.data_ptr(),
             rect_max.data_ptr(), depth.data_ptr(),
             means2d.data_ptr() if cull else None,
             conic.data_ptr() if cull else None,
             op.data_ptr() if cull else None,
             p, max_pairs, grid_x, num_tiles, tw, th, alpha_min,
             out_tile.data_ptr(), out_depth.data_ptr(), out_gid.data_ptr(),
-            stream,
+            total.data_ptr(), stream,
         )
     KERNEL.check(err, "expand_entries_launch")
     KERNEL.launched()

@@ -15,6 +15,7 @@ returns the per-entry payload gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,8 +30,8 @@ BLEND_QUADS = ("vpu", "mxu")
 KERNEL = KernelLib("rasterize", {
     "rasterize_forward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _p, _p,
-         _p],
+        [_p, _i64, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+         _f, _f, _f, _p, _p, _p],
     ),
 }, variants=BLEND_QUADS)
 
@@ -42,10 +43,75 @@ BACKWARD_KERNEL = KernelLib("rasterize_backward", {
     ),
 }, variants=BLEND_QUADS)
 
-#: one block per tile; the forward kernel runs one thread per pixel
+#: one block per tile, at most one thread per pixel
 MAX_TILE_PIXELS = 1024
 #: pixels a thread of the backward kernel may own (its template instances)
 BACKWARD_PIXELS_PER_THREAD = (4, 2, 1)
+#: pixels a thread of the forward kernel may own (its template instances)
+FORWARD_PIXELS_PER_THREAD = (2, 1)
+#: a warp's P groups of 32 pixels as (columns, rows) of 8x4 boxes, in order
+#: of preference (the first that tiles the tile's boxes)
+_WARP_REGIONS = {2: ((1, 2), (2, 1)), 1: ((1, 1),)}
+
+
+def forward_launch_shape(tile_w: int, tile_h: int) -> tuple:
+    """(threads a block, pixels a thread) of the forward kernel for a tile:
+    two pixels a thread where that makes at least four whole warps, else one
+    pixel a thread on the tile's pixel count rounded up to whole warps (the
+    faster of the kernel's two instances at tile 16 and 32 on the H100,
+    PERF.md). Any tile of 1 to ``MAX_TILE_PIXELS`` pixels is taken."""
+    pix = tile_w * tile_h
+    if tile_w < 1 or tile_h < 1 or pix > MAX_TILE_PIXELS:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the forward kernel takes "
+                         f"1 to {MAX_TILE_PIXELS} pixels")
+    if pix % 64 == 0 and pix // 2 >= 128:
+        return pix // 2, 2
+    return -(-pix // 32) * 32, 1
+
+
+def forward_pixel_map(tile_w: int, tile_h: int,
+                      pixels_per_thread: int) -> torch.Tensor:
+    """(threads, P) int32: the tile-local pixel (y * tile_w + x) of each
+    thread's P pixels, -1 where a pad lane has none.
+
+    The pixels come in groups of 32, one a lane; the P pixels of a thread
+    lie in the P groups of its warp (lane l of slot i of warp w is in group
+    w * P + i). Where the tile is whole 8x4 boxes, a group is one box (lane
+    l at (l % 8, l // 8)) and a warp's P boxes are a compact region
+    (``_WARP_REGIONS``: 8x8 pixels at P = 2, or 16x4), the regions
+    row by row over the tile; otherwise group g is pixels [32 g, 32 g + 32)
+    in row order."""
+    per = pixels_per_thread
+    pix = tile_w * tile_h
+    if per not in FORWARD_PIXELS_PER_THREAD or (per > 1 and pix % (32 * per)):
+        raise ValueError(f"tile {tile_w}x{tile_h}: {per} pixels a thread do "
+                         "not make whole warps")
+    n_groups = -(-pix // 32)
+    warps = -(-n_groups // per)
+    w = torch.arange(warps)[:, None, None]
+    i = torch.arange(per)[None, :, None]
+    lane = torch.arange(32)[None, None, :]
+    bw, bh = tile_w // 8, tile_h // 4
+    regions = [(rw, rh) for rw, rh in _WARP_REGIONS[per]
+               if tile_w % 8 == 0 and tile_h % 4 == 0
+               and bw % rw == 0 and bh % rh == 0]
+    if regions:
+        rw, rh = regions[0]
+        box_x = (w % (bw // rw)) * rw + i % rw
+        box_y = (w // (bw // rw)) * rh + i // rw
+        pixel = (box_y * 4 + lane // 8) * tile_w + box_x * 8 + lane % 8
+    else:
+        pixel = (w * per + i) * 32 + lane
+        pixel = torch.where(pixel < pix, pixel, -1)
+    # (warps, P, 32) -> (threads, P)
+    return pixel.permute(0, 2, 1).reshape(warps * 32, per).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_pixel_map(tile_w: int, tile_h: int, pixels_per_thread: int, dev):
+    """``forward_pixel_map`` on ``dev``, copied once per tile and device
+    (the kernel only reads it)."""
+    return forward_pixel_map(tile_w, tile_h, pixels_per_thread).to(dev)
 
 
 def backward_launch_shape(tile_w: int, tile_h: int) -> tuple:
@@ -102,11 +168,25 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
     if payload.device.type == "cpu":
         return rasterize_reference(payload, tile_starts, tile_counts, grid_x,
                                    width, height, cfg)
+    return _launch_forward(payload, tile_starts, tile_counts, grid_x, width,
+                           height, cfg, forward_launch_shape(*cfg.tile_wh)[1])
+
+
+def _launch_forward(payload, tile_starts, tile_counts, grid_x: int,
+                    width: int, height: int, cfg: RenderConfig,
+                    pixels_per_thread: int):
+    """``rasterize_forward``'s launch with a given number of pixels a
+    thread (``chip_smoke.py`` times the other choice with it). The blocks
+    take the tiles in descending order of their entry counts (a
+    ``torch.argsort``), so the longest tiles do not start in the last
+    wave."""
     tw, th = _check_launch_args("rasterize_forward", payload, tile_starts,
                                 tile_counts, cfg)
     pix = tw * th
     num_tiles = tile_starts.shape[0]
     dev = payload.device
+    pixel_map = _device_pixel_map(tw, th, pixels_per_thread, dev)
+    order = torch.argsort(tile_counts, descending=True)
     color = torch.empty((num_tiles, pix, 3), dtype=torch.float32, device=dev)
     trans = torch.empty((num_tiles, pix, 1), dtype=torch.float32, device=dev)
     if num_tiles == 0:
@@ -116,9 +196,12 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rasterize_forward_launch(
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
-            tile_counts.data_ptr(), num_tiles, grid_x, width, height, tw, th,
-            _mxu(cfg), cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps,
-            POWER_GUARD, color.data_ptr(), trans.data_ptr(), stream,
+            tile_counts.data_ptr(), pixel_map.data_ptr(), order.data_ptr(),
+            num_tiles,
+            pixel_map.shape[0], pixels_per_thread, grid_x, width, height, tw,
+            th, _mxu(cfg), cfg.alpha_max, cfg.alpha_min,
+            cfg.transmittance_eps, POWER_GUARD, color.data_ptr(),
+            trans.data_ptr(), stream,
         )
     KERNEL.check(err, "rasterize_forward_launch")
     KERNEL.launched(cfg.blend_quad)

@@ -196,3 +196,90 @@ def test_wrapper_rejects_non_cuda_non_cpu_tensors():
     z = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         pr.rasterize_forward(payload, z, z, 1, 16, 16, pcfg.RenderConfig())
+
+
+def accepted_forward_tiles():
+    """Every tile the forward kernel takes: 1 to 1024 pixels."""
+    return [(w, h) for w in range(1, pr.MAX_TILE_PIXELS + 1)
+            for h in range(1, pr.MAX_TILE_PIXELS // w + 1)]
+
+
+def test_forward_launch_shape_covers_every_accepted_tile():
+    """Whole warps, one of the kernel's instances, every pixel once; two
+    pixels a thread exactly where that makes four whole warps or more."""
+    for w, h in accepted_forward_tiles():
+        threads, per = pr.forward_launch_shape(w, h)
+        pix = w * h
+        assert per in pr.FORWARD_PIXELS_PER_THREAD
+        assert threads % 32 == 0 and threads * per <= pr.MAX_TILE_PIXELS
+        assert threads * per >= pix > threads * per - 32 * per
+        assert per == (2 if pix % 64 == 0 and pix >= 256 else 1)
+
+
+@pytest.mark.parametrize("tile_w,tile_h,threads,per_thread", [
+    (16, 16, 128, 2),
+    (32, 32, 512, 2),
+    (32, 16, 256, 2),
+    (16, 8, 128, 1),
+    (8, 4, 32, 1),
+    (32, 3, 96, 1),
+    (10, 10, 128, 1),
+    (1, 1, 32, 1),
+])
+def test_forward_launch_shape_of_common_tiles(tile_w, tile_h, threads,
+                                              per_thread):
+    assert pr.forward_launch_shape(tile_w, tile_h) == (threads, per_thread)
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [(64, 32), (33, 32), (0, 32),
+                                           (16, 0)])
+def test_forward_launch_shape_rejects_tiles_never_taken(tile_w, tile_h):
+    with pytest.raises(ValueError, match="pixels"):
+        pr.forward_launch_shape(tile_w, tile_h)
+
+
+@pytest.mark.parametrize("tile_w,tile_h,per,warp_region", [
+    (32, 32, 2, (8, 8)),
+    (32, 16, 2, (8, 8)),
+    (16, 16, 2, (8, 8)),
+    (16, 4, 2, (16, 4)),
+    (32, 32, 1, (8, 4)),
+    (10, 10, 1, None),
+    (32, 3, 1, None),
+])
+def test_forward_pixel_map_groups_are_compact(tile_w, tile_h, per,
+                                              warp_region):
+    """Every pixel of the tile exactly once, pad lanes none; a thread's P
+    pixels in the P groups of its warp; where the tile is whole 8x4 boxes,
+    each group (one slot of a warp's 32 lanes) an 8x4 box and each warp's
+    groups one compact region; otherwise 32 pixels in row order."""
+    m = pr.forward_pixel_map(tile_w, tile_h, per)
+    threads = m.shape[0]
+    assert m.dtype == torch.int32 and m.shape == (threads, per)
+    assert threads % 32 == 0
+    assert sorted(m[m >= 0].tolist()) == list(range(tile_w * tile_h))
+    groups = m.reshape(-1, 32, per).permute(0, 2, 1).reshape(-1, 32)
+    for g, group in enumerate(groups):
+        if warp_region is None:
+            want = torch.arange(32 * g, 32 * g + 32)
+            want = torch.where(want < tile_w * tile_h, want, -1)
+            assert torch.equal(group, want.to(torch.int32))
+            continue
+        x, y = group % tile_w, group // tile_w
+        assert torch.equal(x - x.min(), torch.arange(32) % 8)
+        assert torch.equal(y - y.min(), torch.arange(32) // 8)
+    if warp_region is None:
+        return
+    for warp in m.reshape(-1, 32 * per):
+        x, y = warp % tile_w, warp // tile_w
+        assert (int(x.max() - x.min() + 1), int(y.max() - y.min() + 1)) \
+            == warp_region
+
+
+@pytest.mark.parametrize("tile_w,tile_h,per", [(32, 32, 4), (16, 16, 3),
+                                               (10, 10, 2), (32, 3, 2)])
+def test_forward_pixel_map_rejects_instances_never_built(tile_w, tile_h, per):
+    """Only the kernel's instances (``FORWARD_PIXELS_PER_THREAD``), and two
+    pixels a thread only where they make whole warps."""
+    with pytest.raises(ValueError, match="whole warps"):
+        pr.forward_pixel_map(tile_w, tile_h, per)
