@@ -52,7 +52,20 @@ PyTorch version, and drives the port's render and training paths end to end:
      (the longest segment logged), the timed frames and five training
      steps; the north star (6M gaussians) through ``run_config``; and one
      production frame under ``torch.profiler``
-     (``utils/profiling.frame_profile``).
+     (``utils/profiling.frame_profile``);
+  7. densifying, batched training at the production configuration: capacity
+     2M from 1M actives (the bench scene's first half, means moved by
+     N(0, 0.01), opacity logits lowered by 1) towards the full scene's
+     renders from 4 views on a ring (the bench camera's), 10 steps of
+     ``make_batched_train_step`` (B = 4), a ``densify_step`` round with the
+     ``DensifyConfig`` defaults, 10 more steps, ``reset_opacity`` and 5
+     steps of ``make_densify_train_step``; the loss falls, no overflow,
+     exact launch counts every step, the round grows the active count and
+     equals its re-run on the CPU from copies of its inputs and noise
+     (``check_round``), as does a second round on copies of the state with
+     a ``percent_dense`` at which it splits; then the four kernels against
+     their plain versions on one ring view's stages with the active mask
+     (``check_masked_view``); inactive rows stay parked and culled.
 
 Every phase runs, in order; to rehearse one, import this module and call
 its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line: the
@@ -1494,6 +1507,357 @@ def phase6(dev):
     ]
 
 
+def ring_cameras(cam, n):
+    """``cam`` and n - 1 more on its ring about the z axis through the
+    origin (the same distance and height), 360/n degrees apart, all looking
+    at the origin."""
+    from luisacomputegaussiansplatting_tpu_torch import look_at_camera
+
+    x, y, z = cam.position
+    out = [cam]
+    for k in range(1, n):
+        a = 2.0 * math.pi * k / n
+        pos = (x * math.cos(a) - y * math.sin(a),
+               x * math.sin(a) + y * math.cos(a), z)
+        out.append(look_at_camera(pos, (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                                  fov=cam.fov, width=cam.width,
+                                  height=cam.height))
+    return out
+
+
+def state_copy(params, opt, dstate, dev):
+    """Copies of a round's inputs on ``dev``: leaf parameters, an Adam over
+    them holding copies of ``opt``'s moments (Adam's ``step`` stays where
+    it was), and the densify state."""
+    from luisacomputegaussiansplatting_tpu_torch.models import DensifyState, GaussianParams, init_train_state
+
+    state, opt2 = init_train_state(GaussianParams(
+        *(p.detach().to(dev) for p in params)))
+    for p, q in zip(params, state.params):
+        opt2.state[q] = {k: (v if k == "step" else v.to(dev)).detach().clone()
+                         for k, v in opt.state[p].items()}
+    return (state.params, opt2,
+            DensifyState(*(t.to(dev).clone() for t in dstate)))
+
+
+def check_round(tag, plan, cpu_plan, params, cpu_params, opt, cpu_opt,
+                before_moments, state, cpu_state, info, cpu_info):
+    """The densify round on the card against its CPU run on the same
+    inputs and noise: the plan (masks, overflow, children and their slots),
+    the new active mask and the counters identical; the rewritten rows
+    within 1e-6 x the field's max |value| there, every other row the same
+    bits; the Adam moments zero in every row that did not survive and
+    unchanged elsewhere. Returns the largest relative difference."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import GaussianParams
+
+    for f in plan._fields:
+        check(torch.equal(getattr(plan, f).cpu(), getattr(cpu_plan, f)),
+              f"{tag}: plan {f} differs card vs CPU")
+    check(torch.equal(state.active.cpu(), cpu_state.active),
+          f"{tag}: active mask differs card vs CPU")
+    for f in info._fields:
+        check(getattr(info, f).item() == getattr(cpu_info, f).item(),
+              f"{tag}: counter {f} differs card vs CPU")
+    dest = cpu_plan.dest
+    kept = torch.ones(cpu_state.active.shape[0], dtype=torch.bool)
+    kept[dest] = False
+    worst = 0.0
+    for f, p, q in zip(GaussianParams._fields, params, cpu_params):
+        p, q = p.detach().cpu(), q.detach()
+        check(torch.equal(p[kept], q[kept]),
+              f"{tag}: {f} differs card vs CPU outside the rewritten rows")
+        if dest.numel():
+            scale = float(q[dest].abs().max()) or 1.0
+            rel = float((p[dest] - q[dest]).abs().max()) / scale
+            worst = max(worst, rel)
+            check(rel <= 1e-6, f"{tag}: rewritten rows of {f} differ card "
+                               f"vs CPU by {rel:.3e} of their max")
+    gone = ~cpu_plan.survivors
+    for g, cg, (name, m0) in zip(opt.param_groups, cpu_opt.param_groups,
+                                 before_moments):
+        st = opt.state[g["params"][0]]
+        cst = cpu_opt.state[cg["params"][0]]
+        for key, before in zip(("exp_avg", "exp_avg_sq"), m0):
+            m = st[key].cpu()
+            check(torch.equal(m, cst[key]),
+                  f"{tag}: {name} {key} differs card vs CPU")
+            check(not m[gone].any(),
+                  f"{tag}: {name} {key} not zeroed in a retired or new row")
+            check(torch.equal(m[~gone], before[~gone]),
+                  f"{tag}: {name} {key} changed in a surviving row")
+    return worst
+
+
+def checked_round(tag, params, opt, dstate, extent, dcfg, seed, card):
+    """One densify round through ``densify_step`` on the parameters' device,
+    its noise from a generator seeded ``seed``; then the same round on the
+    CPU from copies of its inputs and that noise, held to it by
+    ``check_round``. The round launches no kernel, does not overflow, and
+    the active count adds up. Returns (params, opt, densify state, the
+    counters, the round's ms on the host clock)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import densify_plan, densify_round, densify_step
+
+    dev = params.means.device
+    n_before = int(dstate.num_active)
+    cpu_params, cpu_opt, cpu_dstate = state_copy(params, opt, dstate,
+                                                 torch.device("cpu"))
+    moments0 = [(g["name"], tuple(opt.state[g["params"][0]][k].cpu().clone()
+                                  for k in ("exp_avg", "exp_avg_sq")))
+                for g in opt.param_groups]
+    plan = densify_plan(params, dstate, extent, dcfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen_state = gen.get_state()
+    reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    out, opt, dstate, info = densify_step(params, opt, dstate, gen, extent,
+                                          dcfg)
+    counters = {f: getattr(info, f).item() for f in info._fields}
+    sync(dev)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    check_launches(f"{tag}: densify round", read_launches())
+    check(out is params, f"{tag}: the round made new parameters")
+    n_after = int(dstate.num_active)
+    log(f"{tag}: densify round {round_ms:.3f} ms: {counters}; active "
+        f"{n_before} -> {n_after} of {dstate.active.shape[0]} {card}")
+    check(not counters["overflow"], f"{tag}: the densify round overflowed")
+    check(n_after == n_before + counters["n_cloned"] + counters["n_split"]
+          * (dcfg.split_children - 1) - counters["n_pruned"],
+          f"{tag}: the active count does not add up")
+    gen.set_state(gen_state)
+    noise = torch.randn((dstate.active.shape[0], dcfg.split_children, 3),
+                        generator=gen, device=dev).cpu()
+    cpu_plan = densify_plan(cpu_params, cpu_dstate, extent, dcfg)
+    _, _, cpu_dstate, cpu_info = densify_round(cpu_params, cpu_opt,
+                                               cpu_dstate, noise, extent,
+                                               dcfg)
+    worst = check_round(tag, plan, cpu_plan, params, cpu_params, opt,
+                        cpu_opt, moments0, dstate, cpu_dstate, info,
+                        cpu_info)
+    log(f"{tag}: the round on the card equals its CPU run: plan, active "
+        f"mask and counters identical, rewritten rows within {worst:.3e} of "
+        f"their max, moments zeroed in {int((~plan.survivors).sum())} rows "
+        f"{card}")
+    return params, opt, dstate, counters, round_ms
+
+
+def check_masked_view(tag, params, active, cam, cfg, card):
+    """The four production kernels against their plain versions on one
+    view of the densifying path: its stages with the active mask (inactive
+    rows at radius 0), then K1 bit for bit, K2 within TOL, K3 within
+    GRAD_TOL and K4 (f32 and bf16) within SUM_TOL on that view's payload."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_stages
+
+    w, h = cam.width, cam.height
+    with torch.no_grad():
+        scene = params.activate()
+        s = render_stages(*scene.render_args(), cam.to_view(active.device),
+                          w, h, cfg, active_mask=active)
+        check(not bool(s.binned.overflow), f"{tag}: overflow")
+        check(not bool(s.proj.radius[~active].any()),
+              f"{tag}: an inactive row has a radius")
+        gx, gy = s.grid
+        _, k1_err = compare_expansion(s.proj, gx, gx * gy, cfg.max_pairs,
+                                      s.cull_op, cfg.tile_wh, cfg)
+        ranges = (s.binned.tile_starts, s.binned.tile_counts)
+        ck, tk = rasterize_forward(s.payload, *ranges, gx, w, h, cfg)
+        cp, tp = rasterize_reference(s.payload, *ranges, gx, w, h, cfg)
+        blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
+        check_blend(tag, *blend)
+        st = backward_stages(tag, s.payload, s.binned,
+                             random_residual(ck, tk, 17), gx, w, h, cfg,
+                             active.shape[0])
+    log(f"{tag}: {int(s.binned.num_rendered)} entries of "
+        f"{int(active.sum())} actives; kernel vs plain: K1 max|d| "
+        f"{k1_err:.3e}, K2 max|d| {blend[0]:.3e}, K3 max|d| "
+        f"{st['b2'][2]:.3e} (rel {st['b2'][3]:.2e}), K4 max|d|/max|sum| f32 "
+        f"{st['f32'][3]:.2e} bf16 {st['bf16'][3]:.2e} {card}")
+
+
+def phase7(dev, card):
+    """Densifying, batched training at the production configuration: 2M
+    capacity from 1M actives at 1920x1080, B = 4 views a step."""
+    import torch
+
+    import bench_cuda
+    from luisacomputegaussiansplatting_tpu_torch.models import (
+        DensifyConfig, init_densify_state, init_train_state,
+        make_batched_train_step, make_densify_train_step, pad_params_to,
+        reset_opacity)
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+    from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import call_profile
+
+    on_card = dev.type == "cuda"
+    scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline", dev)
+    w, h = cam.width, cam.height
+    cap = scene.means.shape[0]
+    n0 = cap // 2
+    n_views = 4
+    extent = 3.0
+    cams = ring_cameras(cam, n_views)
+    views = CameraView(*(torch.stack(x) for x in
+                         zip(*(c.to_view(dev) for c in cams))))
+    # the targets: the full scene's renders from the four views
+    targets = []
+    with torch.no_grad():
+        for i, c in enumerate(cams):
+            img, aux = render_aux(*scene.render_args(), c, cfg=cfg)
+            check(not bool(aux.overflow), f"phase7: target {i} overflows")
+            targets.append(img)
+    targets = torch.stack(targets)
+    # the start: the scene's first half, means moved by N(0, 0.01), opacity
+    # logits lowered by 1, at the full capacity
+    gen = torch.Generator(device=dev).manual_seed(7)
+    start = scene.to_params()
+    start = start._replace(
+        means=start.means[:n0] + 0.01 * torch.randn(
+            (n0, 3), generator=gen, device=dev),
+        log_scales=start.log_scales[:n0], quats=start.quats[:n0],
+        opacity_logits=start.opacity_logits[:n0] - 1.0,
+        sh_dc=start.sh_dc[:n0], sh_rest=start.sh_rest[:n0])
+    del scene
+    state, opt = init_train_state(pad_params_to(start, cap))
+    del start
+    dstate = init_densify_state(n0, cap, device=dev)
+    bstep = make_batched_train_step(opt, w, h, cfg=cfg)
+    per_step = dict(expand=n_views, rasterize_mxu=n_views,
+                    rasterize_backward_mxu=n_views, segsum_bf16=n_views)
+    tag = f"[{card}]"
+
+    def batched(first, n):
+        nonlocal state, dstate
+        losses, ms = [], []
+        for i in range(first, first + n):
+            reset_launches()
+            t0 = time.perf_counter()
+            state, dstate, loss, overflow = bstep(state, dstate, views,
+                                                  targets)
+            losses.append(float(loss))  # synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(not bool(overflow), f"phase7: batched step {i} overflows")
+            check_launches(f"phase7 batched step {i}", read_launches(),
+                           **per_step)
+            check(not bool(dstate.count[~dstate.active].any()),
+                  f"phase7: batched step {i} saw an inactive row")
+        return losses, ms
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = batched(0, 10)
+    check(all(map(math.isfinite, losses)), "phase7: non-finite loss")
+    check(losses[-1] < losses[0], "phase7: the loss did not fall over the "
+                                  "first 10 batched steps")
+    log(f"phase7: 10 batched steps (B = {n_views}, {n0} active of {cap}, "
+        f"{w}x{h}): losses {' '.join(f'{v:.6f}' for v in losses)} {tag}")
+
+    # the densify round, on the card through densify_step and again on
+    # the CPU from copies of its inputs and the noise it drew
+    dcfg = DensifyConfig()
+    visible = dstate.active & (dstate.count > 0)
+    avg = (dstate.grad_sum / torch.clamp(dstate.count, min=1.0))[visible]
+    qs = torch.quantile(avg, torch.tensor([0.5, 0.9, 0.99, 0.999, 1.0],
+                                          device=dev))
+    log(f"phase7: avg NDC grad of {int(visible.sum())} visible actives: "
+        f"p50 {qs[0]:.3e} p90 {qs[1]:.3e} p99 {qs[2]:.3e} p99.9 {qs[3]:.3e} "
+        f"max {qs[4]:.3e}; above grad_threshold {dcfg.grad_threshold:g}: "
+        f"{int((avg > dcfg.grad_threshold).sum())} {tag}")
+    # the round on the live state; then, on copies of the state from
+    # before it, a round that splits: the bench scene's scales lie in
+    # [0.004, 0.02], under the default percent_dense x extent (0.03), so
+    # the default round only clones
+    copies = state_copy(state.params, opt, dstate, dev)
+    params, opt, dstate, counters, _ = checked_round(
+        "phase7", state.params, opt, dstate, extent, dcfg, 11, tag)
+    check(counters["n_cloned"] + counters["n_split"] > 0,
+          "phase7: the densify round grew nothing")
+    split_cfg = DensifyConfig(percent_dense=0.004)
+    log(f"phase7 split round: on copies of the state before the round, "
+        f"DensifyConfig(percent_dense={split_cfg.percent_dense:g}) "
+        f"(split above a scale of {split_cfg.percent_dense * extent:g})")
+    split_counters = checked_round("phase7 split round", *copies, extent,
+                                   split_cfg, 13, tag)[3]
+    check(split_counters["n_split"] > 0, "phase7 split round: nothing split")
+    del copies
+
+    losses2, ms2 = batched(10, 10)
+    check(all(map(math.isfinite, losses2)), "phase7: non-finite loss")
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30 if on_card
+            else float("nan"))
+    log(f"phase7: 10 batched steps after the round: losses "
+        f"{' '.join(f'{v:.6f}' for v in losses2)} {tag}")
+    log(f"phase7: batched step (B = {n_views}) median of the last 5 "
+        f"{statistics.median(ms2[-5:]):.3f} ms (all 20: "
+        f"{' '.join(f'{v:.3f}' for v in ms + ms2)}); peak memory "
+        f"{peak:.2f} GiB {tag}")
+    # the kernels against their plain versions on this path's inputs: one
+    # ring view (the plain backward takes seconds) after the round
+    check_masked_view("phase7 ring view 1", state.params, dstate.active,
+                      cams[1], cfg, tag)
+
+    # one more batched step under the profiler: where its time goes
+    def one_step():
+        nonlocal state, dstate
+        state, dstate, loss, _ = bstep(state, dstate, views, targets)
+        return float(loss)
+
+    prof = call_profile(one_step, dev)
+    if on_card:
+        check(prof.busy_ms is not None and prof.busy_ms > 0,
+              "phase7 profile: no device time recorded")
+        log(f"phase7 profile: one batched step {prof.wall_ms:.3f} ms with "
+            f"the profiler on, device busy {prof.busy_ms:.3f} ms: share "
+            f"{prof.busy_share:.3f} {tag}")
+    log("phase7 profile: top 12 ops by self device ms (host ms off the "
+        f"card), of {len(prof.ops)} {tag}:")
+    for name, op_ms, calls in prof.ops[:12]:
+        log(f"  {op_ms:9.3f} ms {calls:5d}x  {name[:100]}")
+
+    sync(dev)
+    t0 = time.perf_counter()
+    params, opt = reset_opacity(state.params, dstate, dcfg, opt)
+    sync(dev)
+    log(f"phase7: reset_opacity {(time.perf_counter() - t0) * 1e3:.3f} ms "
+        f"{tag}")
+
+    dstep = make_densify_train_step(opt, w, h, cfg=cfg)
+    view0 = CameraView(*(x[0] for x in views))
+    losses3 = []
+    for i in range(5):
+        reset_launches()
+        state, dstate, loss, aux = dstep(state, dstate, view0, targets[0])
+        losses3.append(float(loss))
+        check(not bool(aux.overflow), f"phase7: densify step {i} overflows")
+        check_launches(f"phase7 densify step {i}", read_launches(),
+                       expand=1, rasterize_mxu=1,
+                       rasterize_backward_mxu=1, segsum_bf16=1)
+        check(not bool(aux.radii[~dstate.active].any()),
+              f"phase7: densify step {i} drew an inactive row")
+    check(all(map(math.isfinite, losses3)), "phase7: non-finite loss")
+    parked = ~dstate.active
+    check(bool((params.opacity_logits[parked] == -15.0).all()
+               & (params.log_scales[parked] == -18.0).all()),
+          "phase7: an inactive row is not parked")
+    log(f"phase7: 5 densifying steps on the bench view after the reset: "
+        f"losses {' '.join(f'{v:.6f}' for v in losses3)}; "
+        f"{int(parked.sum())} inactive rows parked and culled {tag}")
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def tree_record(dev):
     """K2's digest and device time and the expansion's device times on
     phase 3's frame (strict: vpu, no cull) and phase 6's (production: mxu,
@@ -1580,10 +1944,11 @@ def main(argv):
         phase1(dev, "mxu", "phase6 sweep fwd mxu")
         phase4(dev, "mxu", "phase6 sweep bwd mxu")
         record += phase6(dev)
+        phase7(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 0-6 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 0-7 passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ so far, which is when optax evaluates it.
 Parameters are updated in place: the ``GaussianParams`` of a ``TrainState``
 are leaf tensors that Adam steps, and a step returns the same tensors. The
 Adam moments live in the optimizer (the JAX package's ``opt_state``), which
-:func:`init_train_state` returns beside the state and
-:func:`make_train_step` takes, as the JAX package passes ``opt``.
+:func:`init_train_state` returns beside the state and the ``make_*_step``
+functions take, as the JAX package passes ``opt``.
+
+:func:`make_densify_train_step` and :func:`make_batched_train_step` also
+accumulate the densification statistics (``models/densify.py``) through a
+zero means2d probe, and cull the inactive rows through the active mask.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from ..config import RenderConfig
 from ..ops.render import render_view
 from ..utils.camera import CameraView
+from .densify import DensifyState, accumulate_stats, ndc_grad_norm
 from .gaussians import GaussianParams
 from .losses import d_ssim_l1_loss
 
@@ -142,5 +147,101 @@ def make_train_step(opt: torch.optim.Adam, width: int, height: int,
         optimizer_step(opt, tc, state.step)
         return (TrainState(state.params, state.step + 1),
                 loss.detach(), aux)
+
+    return step
+
+
+def make_densify_train_step(opt: torch.optim.Adam, width: int, height: int,
+                            cfg: RenderConfig = RenderConfig(),
+                            sh_degree: int = 3,
+                            tc: TrainConfig = TrainConfig(),
+                            bg_color=(0.0, 0.0, 0.0)):
+    """Single-view step that also accumulates the densification statistics:
+    (state, dstate, cam_view, target) -> (state, dstate, loss, aux).
+
+    The screen-space positional gradient comes from a zero (C, 2) means2d
+    probe added in projection: its gradient is dL/d(means2d) in pixels.
+    Rows that ``dstate.active`` marks inactive are culled."""
+
+    def step(state: TrainState, dstate: DensifyState, cam_view: CameraView,
+             target):
+        params = state.params
+        probe = torch.zeros((params.means.shape[0], 2), dtype=torch.float32,
+                            device=params.means.device, requires_grad=True)
+        scene = params.activate()
+        img, aux = render_view(
+            scene.means, scene.scales, scene.quats, scene.opacities, scene.sh,
+            cam_view, width, height, bg_color, cfg, sh_degree,
+            active_mask=dstate.active, means2d_probe=probe,
+        )
+        loss = d_ssim_l1_loss(img, target, tc.ssim_weight)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer_step(opt, tc, state.step)
+        dstate = accumulate_stats(dstate, probe.grad, aux.radii, width,
+                                  height)
+        return TrainState(params, state.step + 1), dstate, loss.detach(), aux
+
+    return step
+
+
+def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
+                            cfg: RenderConfig = RenderConfig(),
+                            sh_degree: int = 3,
+                            tc: TrainConfig = TrainConfig(),
+                            bg_color=(0.0, 0.0, 0.0)):
+    """Densifying step over a batch of B views:
+    (state, dstate, views, targets) -> (state, dstate, loss, overflow).
+
+    ``views`` is a CameraView whose tensors are stacked over the views
+    (view (B, 4, 4), position (B, 3), tan_fovx and tan_fovy (B,)),
+    ``targets`` (B, 3, H, W). The views render one after another (the JAX
+    package vmaps them); the loss is the mean of the per-view losses, with
+    one backward. Statistics: the per-view probe-gradient norms are summed,
+    the visibility count adds one per view that sees a gaussian, the max
+    radii take the batch max; ``overflow`` is any view's."""
+
+    def step(state: TrainState, dstate: DensifyState, views: CameraView,
+             targets):
+        params = state.params
+        n_views = targets.shape[0]
+        # a probe per view: graphdeco accumulates ||dL_v/d means2d|| per
+        # view; one shared probe would give the norm of the batch-summed
+        # gradient, understated ~B-fold (and cancelling across views)
+        probe = torch.zeros((n_views, params.means.shape[0], 2),
+                            dtype=torch.float32, device=params.means.device,
+                            requires_grad=True)
+        scene = params.activate()
+        losses, radii, overflow = [], [], []
+        for v in range(n_views):
+            img, aux = render_view(
+                scene.means, scene.scales, scene.quats, scene.opacities,
+                scene.sh, CameraView(*(x[v] for x in views)), width, height,
+                bg_color, cfg, sh_degree, active_mask=dstate.active,
+                means2d_probe=probe[v],
+            )
+            losses.append(d_ssim_l1_loss(img, targets[v], tc.ssim_weight))
+            radii.append(aux.radii)
+            overflow.append(aux.overflow)
+        loss = torch.mean(torch.stack(losses))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer_step(opt, tc, state.step)
+
+        radii = torch.stack(radii)  # (B, C)
+        visible = radii > 0
+        # probe.grad[v] is dL_v/d probe / B (the loss is the batch mean):
+        # undo the 1/B so each view's norm is a single-view step's
+        g = ndc_grad_norm(probe.grad * float(n_views), width, height)
+        dstate = DensifyState(
+            grad_sum=dstate.grad_sum + torch.sum(torch.where(visible, g, 0.0),
+                                                 dim=0),
+            count=dstate.count + torch.sum(visible, dim=0).to(torch.float32),
+            max_radii=torch.maximum(dstate.max_radii,
+                                    torch.amax(radii, dim=0)),
+            active=dstate.active,
+        )
+        return (TrainState(params, state.step + 1), dstate, loss.detach(),
+                torch.any(torch.stack(overflow)))
 
     return step

@@ -16,7 +16,8 @@ loop (app/main.cpp:225,317-320) and an ImGui FPS counter. Here:
     under ``torch.profiler``: each op's and each kernel's device time and
     the frame's device-busy share. Stages are attributed inside the full
     frame, not in isolated probes, which can get the sign of a change
-    wrong once stages overlap or share caches.
+    wrong once stages overlap or share caches. ``call_profile`` does the
+    same for any one call, such as a training step.
 
 Everything runs on the device of the scene's tensors; the device numbers
 exist only on the card (``frame_profile`` reports host times on the CPU).
@@ -299,10 +300,10 @@ def backward_timings(scene, camera, cfg=None, sh_degree: int = 3,
 
 
 class FrameProfile(NamedTuple):
-    """One profiled forward + backward frame."""
+    """One profiled call: a forward + backward frame, a training step."""
 
     device: str  # "cuda" or "cpu"
-    wall_ms: float  # the frame, profiler on: CUDA events (host clock on CPU)
+    wall_ms: float  # the call, profiler on: CUDA events (host clock on CPU)
     busy_ms: Optional[float]  # union of the device's kernel and copy spans
     busy_share: Optional[float]  # busy_ms / wall_ms (None on the CPU)
     #: (op, ms, calls), most time first: each op's self device time (the
@@ -328,11 +329,7 @@ def frame_profile(scene, camera, cfg=None,
     """Profile ONE full differentiable frame: ``render_aux`` under autograd,
     loss = image sum, backward to the five gaussian groups and the
     background (the frame ``bench.py`` times), after one unprofiled
-    warm-up frame.
-
-    The busy share is the union of the device's kernel and copy spans over
-    the frame's wall time; the profiler's own host overhead lengthens the
-    frame, so it reads lower than in an unprofiled frame."""
+    warm-up frame (see :func:`call_profile`)."""
     from ..config import RenderConfig
 
     cfg = cfg or RenderConfig()
@@ -344,10 +341,18 @@ def frame_profile(scene, camera, cfg=None,
         return fwd_bwd_frame(leaves, bg, camera, cfg, sh_degree)
 
     frame()  # warm-up: kernel builds, allocator
+    return call_profile(frame, dev)
+
+
+def call_profile(fn: Callable, dev: torch.device) -> FrameProfile:
+    """Profile ONE call of ``fn()`` whose work runs on ``dev`` (a training
+    step, a frame). The busy share is the union of the device's kernel and
+    copy spans over the call's wall time; the profiler's own host overhead
+    lengthens the call, so it reads lower than in an unprofiled call."""
     clock = _Clock(dev)
     with torch.profiler.profile(activities=_activities()) as prof:
         clock.start()
-        frame()
+        fn()
         wall_ms = clock.stop()
     on_card = dev.type == "cuda"
     avg = prof.key_averages()
