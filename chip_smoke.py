@@ -19,7 +19,10 @@ PyTorch version, and drives the port's render and training paths end to end:
      kernel must equal the plain expansion bit for bit, the blend kernel
      must agree with the plain rasterizer within BLEND_TOL below, at every
      number of pixels a thread, each instance the same bits;
-  2. the render CLI in-process on a 200K-gaussian scene at 1600x1063;
+  2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
+     on the 2M bench scene from its PLY (the native loader) at 1920x1080
+     with the strict defaults and the reference's L (``--max-pairs`` 20M):
+     no overflow, ``rep_ms`` logged;
   3. the forward slice: a 2M-gaussian random scene at 1920x1080 through
      ``render_aux`` with the strict-parity config, re-run stage by stage with
      the plain versions, and timed (the forward blend at each number of
@@ -65,7 +68,25 @@ PyTorch version, and drives the port's render and training paths end to end:
      (``check_round``), as does a second round on copies of the state with
      a ``percent_dense`` at which it splits; then the four kernels against
      their plain versions on one ring view's stages with the active mask
-     (``check_masked_view``); inactive rows stay parked and culled.
+     (``check_masked_view``); inactive rows stay parked and culled;
+  8. the dataset loaders, the train CLI and the viewer: (a) a COLMAP
+     binary model in mip-NeRF-360 layout (``sparse/0/*.bin``, ``images/``)
+     of 8 renders of the 2M bench scene at 1920x1080 on the bench camera's
+     ring and 300K points (its first means, moved by N(0, 0.01)), loaded
+     back by ``load_colmap`` (cameras within 1e-5, targets within 1/255);
+     (b) ``train_cli.main`` on it at bench.py's production configuration,
+     2M capacity, B = 4, 60 steps with densify rounds at 20, 30 and 40, an
+     opacity reset at 30, checkpoints and evals every 20: the loss and
+     view 0's PSNR improve, the active count rises every round, no
+     overflow, exactly 4 launches of each production kernel every step,
+     the exported PLY read equal by the native and the numpy loaders;
+     (c) the same run resumed from step 60 to 70; (d) the CLI's defaults
+     (one view, vpu, tile 16, f32) with ``max_pairs`` a third of the first
+     view's entries: it grows; (e) the viewer on the 2M scene at its
+     defaults over loopback at 1280x720 and 1920x1080, 20 frames on a ring
+     each, every request's time in four parts (render by CUDA events;
+     copy, flip and cast; JPEG; HTTP), each frame >= 35 dB against
+     ``render_view``, a malformed query answered 400.
 
 Every phase runs, in order; to rehearse one, import this module and call
 its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line: the
@@ -105,7 +126,10 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -633,22 +657,59 @@ def phase1(dev, blend="vpu", name="phase1"):
                          gy, w, h, cfg, ck, tk, (cp, tp), 0)
 
 
-def phase2():
+def run_render_cli(argv):
+    """``render_cli.main(argv)`` in-process: (rc, stdout, stderr)."""
     from luisacomputegaussiansplatting_tpu_torch.apps import render_cli
 
-    out_dir = os.path.join(ROOT, "build", "chip_smoke")
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = render_cli.main([
-            "--synthetic", "200000", "--res", "1600x1063", "--exp_N", "3",
-            "--max-pairs", "16000000", "--out", out_dir,
-        ])
-    for line in out.getvalue().splitlines():
+        rc = render_cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def bench_scene_ply():
+    """The 2M bench scene (``bench_cuda``'s) saved as a PLY under
+    build/chip_smoke; returns its path."""
+    from luisacomputegaussiansplatting_tpu_torch import random_scene, save_ply
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "bench2m.ply")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    save_ply(random_scene(2_000_000, seed=0, extent=3.0,
+                          scale_range=(0.004, 0.02), device="cpu"), path)
+    log(f"phase2: the 2M bench scene saved as a PLY "
+        f"({os.path.getsize(path) / 2**20:.0f} MiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def phase2(card):
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    rc, out, err = run_render_cli([
+        "--synthetic", "200000", "--res", "1600x1063", "--exp_N", "3",
+        "--max-pairs", "16000000", "--out", out_dir,
+    ])
+    for line in out.splitlines():
         log(f"phase2 cli: {line}")
     check(rc == 0, f"render_cli returned {rc}")
-    check("overflow" not in err.getvalue(), f"render_cli: {err.getvalue()}")
-    check("num_rendered:" in out.getvalue() and "rep_ms:" in out.getvalue(),
+    check("overflow" not in err, f"render_cli: {err}")
+    check("num_rendered:" in out and "rep_ms:" in out,
           "render_cli printed no num_rendered / rep_ms line")
+    # the strict row: the 2M bench scene from its PLY (the native loader),
+    # the bench camera, the strict defaults and the reference's L = 20M
+    rc, out, err = run_render_cli([
+        "--ply", bench_scene_ply(), "--res", "1920x1080", "--world",
+        "blender", "--cam-pos", "3.5,-3.0,2.2", "--cam-target", "0,0,0",
+        "--fov", "65", "--exp_N", "3", "--max-pairs", "20000000",
+        "--out", out_dir,
+    ])
+    for line in out.splitlines():
+        log(f"phase2 strict 2M cli: {line}")
+    check(rc == 0, f"render_cli (strict 2M) returned {rc}")
+    check("overflow" not in err, f"render_cli (strict 2M): {err}")
+    rep = [ln for ln in out.splitlines() if ln.startswith("rep_ms:")]
+    check(len(rep) == 1, "render_cli (strict 2M) printed no rep_ms line")
+    log(f"phase2 strict 2M at max_pairs 20M, no overflow: {rep[0]} [{card}]")
 
 
 def headline(dev):
@@ -1851,6 +1912,577 @@ def phase7(dev, card):
         f"{int(parked.sum())} inactive rows parked and culled {tag}")
 
 
+# ---- phase 8: the dataset loaders, the train CLI and the viewer -----------
+
+P8_VIEWS = 8
+P8_RES = (1920, 1080)
+P8_SCENE = 2_000_000
+P8_CAPACITY = 2_000_000
+P8_POINTS = 300_000
+P8_FOV = 60.0
+P8_MAX_PAIRS = 16_000_000
+P8_VIEWER_RES = ((1280, 720), (1920, 1080))
+
+
+def p8_train_argv(root, out_dir, dev):
+    """8b's argv: bench.py:57-63's production configuration in the CLI's
+    flags, graphdeco's schedule cut to 60 steps, B = 4 views a step."""
+    return [
+        "--colmap", root, "--out", out_dir, "--device", str(dev),
+        "--capacity", str(P8_CAPACITY),
+        "--views-per-step", "4", "--tile", "32", "--pack", "none",
+        "--tile-cull", "--sort", "fused", "--payload", "bf16",
+        "--grad-reduce-dtype", "bf16", "--blend", "mxu",
+        "--max-pairs", str(P8_MAX_PAIRS), "--densify-from", "10",
+        "--densify-interval", "10", "--densify-until", "40",
+        "--opacity-reset-interval", "30", "--ckpt-every", "20",
+        "--eval-every", "20", "--log-every", "10",
+    ]
+
+
+LOG_RE = re.compile(r"\[(\d+)/(\d+)\] loss (\S+)  active (\d+)  (\S+) it/s")
+DENSIFY_RE = re.compile(r"\[(\d+)\] densify: \+(\d+) cloned \+(\d+) split "
+                        r"-(\d+) pruned -> (\d+) active")
+EVAL_RE = re.compile(r"eval view0 PSNR (\S+) dB  SSIM (\S+)")
+
+
+def rotation_to_qvec(r):
+    """A rotation matrix -> COLMAP's (w, x, y, z) unit quaternion (the
+    inverse of ``io.dataset._qvec2rot``)."""
+    t = r[0, 0] + r[1, 1] + r[2, 2]
+    if t > 0:
+        s = math.sqrt(t + 1.0) * 2.0
+        q = (0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+             (r[1, 0] - r[0, 1]) / s)
+    elif r[0, 0] > r[1, 1] and r[0, 0] > r[2, 2]:
+        s = math.sqrt(1.0 + r[0, 0] - r[1, 1] - r[2, 2]) * 2.0
+        q = ((r[2, 1] - r[1, 2]) / s, 0.25 * s, (r[0, 1] + r[1, 0]) / s,
+             (r[0, 2] + r[2, 0]) / s)
+    elif r[1, 1] > r[2, 2]:
+        s = math.sqrt(1.0 + r[1, 1] - r[0, 0] - r[2, 2]) * 2.0
+        q = ((r[0, 2] - r[2, 0]) / s, (r[0, 1] + r[1, 0]) / s, 0.25 * s,
+             (r[1, 2] + r[2, 1]) / s)
+    else:
+        s = math.sqrt(1.0 + r[2, 2] - r[0, 0] - r[1, 1]) * 2.0
+        q = ((r[1, 0] - r[0, 1]) / s, (r[0, 2] + r[2, 0]) / s,
+             (r[1, 2] + r[2, 1]) / s, 0.25 * s)
+    return q
+
+
+def write_colmap_model(root, cams, names, xyz, rgb):
+    """A COLMAP binary model in mip-NeRF-360 layout: ``sparse/0/{cameras,
+    images,points3D}.bin`` (one PINHOLE camera, square pixels) for the
+    ``images/`` the caller writes. Each point's track is one observation."""
+    import numpy as np
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    w, h = cams[0].width, cams[0].height
+    f = 0.5 * h / math.tan(math.radians(cams[0].fov) * 0.5)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", 1))
+        fh.write(struct.pack("<iiQQ", 1, 1, w, h))  # camera 1, PINHOLE
+        fh.write(struct.pack("<4d", f, f, w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", len(cams)))
+        for i, (c, name) in enumerate(zip(cams, names)):
+            # world -> camera: rows right, down, front (COLMAP: +z forward,
+            # +y down)
+            r = np.array([c.right, [-u for u in c.up], c.front])
+            fh.write(struct.pack("<i", i + 1))
+            fh.write(struct.pack("<4d", *rotation_to_qvec(r)))
+            fh.write(struct.pack("<3d", *(-r @ np.asarray(c.position))))
+            fh.write(struct.pack("<i", 1))
+            fh.write(name.encode() + b"\x00")
+            fh.write(struct.pack("<Q", 0))  # no 2D points
+    rec = np.zeros(len(xyz), np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+        ("track_len", "<u8"), ("image_id", "<i4"), ("point2d", "<i4")]))
+    rec["id"] = np.arange(len(xyz))
+    rec["xyz"] = xyz
+    rec["rgb"] = rgb
+    rec["error"] = 0.5
+    rec["track_len"] = 1
+    rec["image_id"] = 1
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", len(xyz)))
+        fh.write(rec.tobytes())
+
+
+def phase8_dataset(scene, work, dev, tag):
+    """8a: the COLMAP binary dataset of the bench scene's renders, written
+    and loaded back. Returns (root, the loaded dataset)."""
+    import numpy as np
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera
+    from luisacomputegaussiansplatting_tpu_torch.io.dataset import load_colmap, load_colmap_points3d
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+    from luisacomputegaussiansplatting_tpu_torch.utils.image import write_png
+    from luisacomputegaussiansplatting_tpu_torch.utils.sh import SH_C0
+
+    root = os.path.join(work, "scene")
+    os.makedirs(os.path.join(root, "images"))
+    # the bench camera's pose (bench.py:101-104) on a ring about its target
+    cam = look_at_camera((3.5, -3.0, 2.2), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                         fov=P8_FOV, width=P8_RES[0], height=P8_RES[1])
+    cams = ring_cameras(cam, P8_VIEWS)
+    names = [f"view{i:02d}.png" for i in range(P8_VIEWS)]
+    t0 = time.perf_counter()
+    renders = []
+    with torch.no_grad():
+        for c, name in zip(cams, names):
+            img, aux = render_aux(*scene.render_args(), c,
+                                  cfg=RenderConfig(max_pairs=P8_MAX_PAIRS))
+            check(not bool(aux.overflow), f"phase8a: {name} overflows")
+            img = torch.clamp(img, 0.0, 1.0).cpu().numpy()
+            renders.append(img)
+            write_png(os.path.join(root, "images", name), img)  # top-down
+    rng = np.random.default_rng(8)
+    xyz = (scene.means[:P8_POINTS].cpu().numpy().astype(np.float64)
+           + rng.normal(0.0, 0.01, (P8_POINTS, 3)))
+    dc = scene.sh[:P8_POINTS, 0, :].cpu().numpy()
+    rgb = (np.clip(dc * SH_C0 + 0.5, 0.0, 1.0) * 255.0).astype(np.uint8)
+    write_colmap_model(root, cams, names, xyz, rgb)
+    log(f"phase8a: wrote {P8_VIEWS} views at {P8_RES[0]}x{P8_RES[1]} "
+        f"(renders of the {scene.means.shape[0]}-gaussian bench scene) and "
+        f"{P8_POINTS} points as a COLMAP binary model in "
+        f"{time.perf_counter() - t0:.2f} s {tag}")
+
+    t0 = time.perf_counter()
+    data = load_colmap(root)
+    load_s = time.perf_counter() - t0
+    check(len(data) == P8_VIEWS, f"phase8a: loaded {len(data)} views")
+    worst_pos = worst_axis = worst_px = 0.0
+    for c, lc, ref, tgt in zip(cams, data.cameras, renders, data.targets):
+        check((lc.width, lc.height) == P8_RES, "phase8a: image size")
+        worst_pos = max(worst_pos, float(np.abs(
+            np.subtract(lc.position, c.position)).max()))
+        worst_axis = max(worst_axis, float(np.abs(np.concatenate([
+            np.subtract(lc.front, c.front), np.subtract(lc.up, c.up)])).max()))
+        check(abs(lc.fov - P8_FOV) < 1e-6, f"phase8a: fov {lc.fov}")
+        worst_px = max(worst_px, float(np.abs(tgt - ref).max()))
+    check(worst_pos <= 1e-5 and worst_axis <= 1e-5,
+          f"phase8a: cameras off by {worst_pos:.3e} / {worst_axis:.3e}")
+    check(worst_px <= 1.0 / 255.0 + 1e-6,
+          f"phase8a: a target is {worst_px:.3e} from its render")
+    t0 = time.perf_counter()
+    pts, cols = load_colmap_points3d(root)
+    pts_s = time.perf_counter() - t0
+    check(pts.shape == (P8_POINTS, 3) and np.array_equal(
+        pts, xyz.astype(np.float32)) and np.array_equal(
+        cols, rgb.astype(np.float32) / 255.0), "phase8a: points3D differ")
+    log(f"phase8a: load_colmap {load_s:.3f} s ({P8_VIEWS} PNGs, extent "
+        f"{data.scene_extent:.4f}), load_colmap_points3d {pts_s:.3f} s; "
+        f"cameras within {worst_pos:.2e} (position) / {worst_axis:.2e} "
+        f"(axes), targets within {worst_px:.3e} of their renders {tag}")
+    return root, data
+
+
+class StepProbe:
+    """A train CLI step factory whose steps record their kernel launches
+    (the counts' difference around the step) and CUDA-event span."""
+
+    def __init__(self, make):
+        self.make = make
+        self.launches = []
+        self.events = []
+        self.host = []  # host clock at each step's start and end
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        step = self.make(*args, **kw)
+
+        def probed(*a):
+            t0 = time.perf_counter()
+            before = read_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a)
+            end.record()
+            after = read_launches()
+            self.launches.append({k: after[k] - before[k] for k in after})
+            self.events.append((start, end))
+            self.host.append((t0, time.perf_counter()))
+            return out
+
+        return probed
+
+    def step_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+class DensifyProbe:
+    """The train CLI's ``densify_step`` with each round's avg NDC gradient
+    quantiles (visible actives, before the round) and its host time."""
+
+    def __init__(self, real):
+        self.real = real
+        self.rounds = []
+
+    def __call__(self, params, opt, dstate, gen, extent, cfg):
+        import torch
+
+        visible = dstate.active & (dstate.count > 0)
+        avg = (dstate.grad_sum / torch.clamp(dstate.count, min=1.0))[visible]
+        qs = torch.quantile(avg, torch.tensor(
+            [0.5, 0.9, 0.99, 0.999, 1.0], device=avg.device)).tolist()
+        above = int((avg > cfg.grad_threshold).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(params, opt, dstate, gen, extent, cfg)
+        torch.cuda.synchronize()
+        self.rounds.append(dict(visible=int(visible.sum()), quantiles=qs,
+                                above=above, threshold=cfg.grad_threshold,
+                                ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def run_train_cli(tag, argv, **probes):
+    """``train_cli.main(argv)`` in-process with ``probes`` put in place of
+    the module's names of the same name: (rc, stdout, stderr); the output
+    is logged line by line."""
+    from luisacomputegaussiansplatting_tpu_torch.apps import train_cli
+
+    saved = {k: getattr(train_cli, k) for k in probes}
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        for k, v in probes.items():
+            setattr(train_cli, k, v)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train_cli.main(argv)
+    finally:
+        for k, v in saved.items():
+            setattr(train_cli, k, v)
+        for line in out.getvalue().splitlines():
+            log(f"{tag} cli: {line}")
+        for line in err.getvalue().splitlines():
+            log(f"{tag} cli stderr: {line}")
+    return rc, out.getvalue(), err.getvalue()
+
+
+def check_exported_ply(tag, path, n_active):
+    """The CLI's PLY: the port's native loader reads it equal to its numpy
+    reader (means and SH bit for bit, the rest within 2e-7)."""
+    import numpy as np
+
+    from luisacomputegaussiansplatting_tpu_torch.io.native import load_gsply_native
+    from luisacomputegaussiansplatting_tpu_torch.io.ply import load_ply
+
+    t0 = time.perf_counter()
+    out = load_gsply_native(path)
+    native_s = time.perf_counter() - t0
+    check(out is not None, f"{tag}: the native loader refused {path}")
+    means, sh, opacity, scales, quats = out
+    t0 = time.perf_counter()
+    ref = load_ply(path, use_native=False, device="cpu")
+    numpy_s = time.perf_counter() - t0
+    check(means.shape[0] == n_active, f"{tag}: {means.shape[0]} rows saved, "
+                                      f"{n_active} active")
+    check(np.array_equal(means, ref.means.numpy())
+          and np.array_equal(sh, ref.sh.numpy()),
+          f"{tag}: native means / SH differ from numpy's")
+    for name, a, b in (("opacity", opacity, ref.opacities),
+                       ("scales", scales, ref.scales),
+                       ("quats", quats, ref.quats)):
+        d = float(np.abs(a - b.numpy()).max() /
+                  max(1.0, float(np.abs(b.numpy()).max())))
+        check(d <= 2e-7, f"{tag}: native {name} off by {d:.3e}")
+    log(f"{tag}: PLY {os.path.getsize(path) / 2**20:.1f} MiB, {n_active} "
+        f"gaussians: native loader {native_s:.3f} s, numpy {numpy_s:.3f} s, "
+        f"equal (means/SH bit for bit)")
+
+
+def phase8_train(root, work, dev, tag):
+    """8b and 8c: production training through the CLI from the COLMAP
+    points, then a resume from its last checkpoint."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.apps import train_cli
+
+    out_dir = os.path.join(work, "train")
+    argv = p8_train_argv(root, out_dir, dev)
+    steps = StepProbe(train_cli.make_batched_train_step)
+    rounds = DensifyProbe(train_cli.densify_step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, out, err = run_train_cli("phase8b", argv + ["--iters", "60"],
+                                 make_batched_train_step=steps,
+                                 densify_step=rounds)
+    t_end = time.perf_counter()
+    total = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(rc == 0, f"phase8b: train_cli returned {rc}")
+    logs = {int(m[0]): m for m in LOG_RE.findall(out)}
+    check(sorted(logs) == [10, 20, 30, 40, 50, 60],
+          f"phase8b: log lines at {sorted(logs)}")
+    loss = {k: float(m[2]) for k, m in logs.items()}
+    psnr = [float(m[0]) for m in EVAL_RE.findall(out)]
+    rnds = [tuple(map(int, m)) for m in DENSIFY_RE.findall(err)]
+    check(loss[60] < loss[10], f"phase8b: loss {loss[10]} at 10, "
+                               f"{loss[60]} at 60")
+    check(len(psnr) == 3 and psnr[2] > psnr[0],
+          f"phase8b: view-0 PSNR {psnr} at 20, 40, 60")
+    check([r[0] for r in rnds] == [20, 30, 40], f"phase8b: rounds {rnds}")
+    actives = [P8_POINTS] + [r[4] for r in rnds]
+    check(all(b > a for a, b in zip(actives, actives[1:])),
+          f"phase8b: the active count {actives} did not rise every round")
+    check("[overflow]" not in err and "WARNING" not in err,
+          "phase8b: overflow")
+    per_step = dict(expand=4, rasterize_mxu=4, rasterize_backward_mxu=4,
+                    segsum_bf16=4)
+    check(len(steps.launches) == 60, f"phase8b: {len(steps.launches)} steps")
+    want = {k: per_step.get(k, 0) for k in total}
+    bad = [i + 1 for i, got in enumerate(steps.launches) if got != want]
+    check(not bad, f"phase8b: steps {bad} launched other than {per_step}")
+    for k in per_step:
+        check(total[k] > 0, f"phase8b: {k} never launched")
+    ms = steps.step_ms()
+    n_final = int(logs[60][3])
+    first, last = steps.host[0][0], steps.host[-1][1]
+    log(f"phase8b: 60 steps (B = 4, capacity {P8_CAPACITY}, from "
+        f"{P8_POINTS} COLMAP points, {P8_RES[0]}x{P8_RES[1]}): CLI wall "
+        f"{t_end - t0:.2f} s = set-up {first - t0:.2f} (dataset, init) + "
+        f"loop {last - first:.2f} (steps, rounds, evals, checkpoints) + "
+        f"tail {t_end - last:.2f} (export, final eval); "
+        f"{logs[60][4]} it/s at step 60; step "
+        f"median {statistics.median(ms):.3f} ms by CUDA events (first "
+        f"{ms[0]:.3f}, after the rounds {statistics.median(ms[40:]):.3f}); "
+        f"peak memory {peak:.2f} GiB {tag}")
+    log(f"phase8b: loss {' '.join(f'{k}:{v:.5f}' for k, v in loss.items())}; "
+        f"view-0 PSNR at 20/40/60 {psnr}; actives {actives} {tag}")
+    log(f"phase8b: launches over the run {total}; exactly {per_step} "
+        f"every step")
+    for r, p in zip(rnds, rounds.rounds):
+        q = p["quantiles"]
+        log(f"phase8b round at {r[0]}: +{r[1]} cloned +{r[2]} split "
+            f"-{r[3]} pruned -> {r[4]}; {p['ms']:.3f} ms; avg NDC grad of "
+            f"{p['visible']} visible actives: p50 {q[0]:.3e} p90 {q[1]:.3e} "
+            f"p99 {q[2]:.3e} p99.9 {q[3]:.3e} max {q[4]:.3e}; above "
+            f"{p['threshold']:g}: {p['above']} {tag}")
+    ply = os.path.join(out_dir, "scene_trained.ply")
+    check_exported_ply("phase8b", ply, n_final)
+
+    # 8c: the same argv resumed from step 60, ten more steps
+    rc, out, err = run_train_cli("phase8c",
+                                 argv + ["--iters", "70", "--resume"])
+    check(rc == 0, f"phase8c: train_cli returned {rc}")
+    check("resumed from step 60" in out, "phase8c: no resume from step 60")
+    logs = LOG_RE.findall(out)
+    check([int(m[0]) for m in logs] == [70], f"phase8c: log lines {logs}")
+    check(int(logs[0][3]) == n_final,
+          f"phase8c: {logs[0][3]} active after the resume, {n_final} saved")
+    check("[overflow]" not in err, "phase8c: overflow")
+    log(f"phase8c: resumed at step 60 with {n_final} actives, loss "
+        f"{logs[0][2]} at 70 {tag}")
+
+
+def phase8_defaults(root, data, work, dev, tag):
+    """8d: the CLI's defaults (one view a step, vpu, tile 16, f32) with
+    max_pairs below the first view's entries: the capacity grows."""
+    import numpy as np
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.apps import train_cli
+    from luisacomputegaussiansplatting_tpu_torch.config import RenderConfig
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
+
+    base = ["--colmap", root, "--capacity", str(P8_CAPACITY), "--iters", "12",
+            "--log-every", "4", "--out", os.path.join(work, "defaults"),
+            "--device", str(dev)]
+    # the first view's entries at the CLI's own init (tile 16, no cull:
+    # every AABB slot is an entry)
+    args = train_cli.build_parser().parse_args(base)
+    with contextlib.redirect_stdout(io.StringIO()):
+        params = train_cli._init_params(args, data, np.random.default_rng(0),
+                                        dev)
+    with torch.no_grad():
+        scene = params.activate()
+        proj = project_gaussians(scene.means, scene.scales, scene.quats,
+                                 data.cameras[0], RenderConfig())
+        entries = int(proj.tiles_touched.sum())
+    del params, scene, proj
+    max_pairs = entries // 3
+    reset_launches()
+    rc, out, err = run_train_cli("phase8d",
+                                 base + ["--max-pairs", str(max_pairs)])
+    got = read_launches()
+    check(rc == 0, f"phase8d: train_cli returned {rc}")
+    grows = re.findall(r"\[overflow\] raising max_pairs to (\d+)", err)
+    check(len(grows) >= 1, "phase8d: max_pairs never grew")
+    for k in ("expand", "rasterize_vpu", "rasterize_backward_vpu",
+              "segsum_f32"):
+        check(got[k] > 0, f"phase8d: {k} never launched")
+    for k in ("rasterize_mxu", "rasterize_backward_mxu", "segsum_bf16"):
+        check(got[k] == 0, f"phase8d: {k} launched")
+    log(f"phase8d: view 0 has {entries} entries at the init; max_pairs "
+        f"{max_pairs} grew to {', '.join(grows)}; launches {got} {tag}")
+
+
+def timed_viewer_class():
+    """A ``ViewerServer`` whose ``render_jpeg`` records each request's
+    parts in ``parts``: the render (CUDA events), the device-to-host copy
+    with the flip and the uint8 cast, and the JPEG encode (host clock)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.apps.viewer import ViewerServer
+
+    class TimedViewer(ViewerServer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.parts = []
+
+        def render_jpeg(self, pos, front, up, fov, bg):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with self._lock:
+                start.record()
+                img = self.render_frame(pos, front, up, fov, bg)
+                end.record()
+                end.synchronize()
+                t1 = time.perf_counter()
+                hwc = self.frame_to_hwc(img)
+                t2 = time.perf_counter()
+            jpeg = self.encode_jpeg(hwc)
+            t3 = time.perf_counter()
+            self.parts.append((start.elapsed_time(end), (t2 - t1) * 1e3,
+                               (t3 - t2) * 1e3))
+            return jpeg
+
+    return TimedViewer
+
+
+def phase8_viewer(scene, dev, tag):
+    """8e: the viewer on the 2M bench scene at its defaults, served over
+    loopback at 1280x720 and 1920x1080: 20 frames on a ring each, their
+    latency in four parts, each frame against ``render_view``."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera
+    from luisacomputegaussiansplatting_tpu_torch.apps.viewer import make_handler
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_view
+
+    # the viewer's defaults (apps/viewer.py main) at max_pairs 16M
+    cfg = RenderConfig(max_pairs=P8_MAX_PAIRS, tile=16, pack_mode="none",
+                       sort_mode="fused", payload_dtype="bf16",
+                       tight_radius=True, tile_cull=True)
+    start = (3.5, -3.0, 2.2)
+    ring = [c.position for c in ring_cameras(look_at_camera(
+        start, (0.0, 0.0, 0.0), (0.0, 0.0, 1.0)), 20)]
+    poses = [(p, tuple(-np.asarray(p) / np.linalg.norm(p)), (0.0, 0.0, 1.0))
+             for p in ring]
+    for w, h in P8_VIEWER_RES:
+        srv = timed_viewer_class()(
+            scene, w, h, cfg, name="bench 2M", init_pos=start,
+            init_target=(0.0, 0.0, 0.0), world_up=(0.0, 0.0, 1.0), fov=P8_FOV,
+            device=dev)
+        t0 = time.perf_counter()
+        srv.warmup()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            for pos, front, up in poses:
+                _, aux = render_view(*srv.scene_args,
+                                     srv._build_view(pos, front, up, P8_FOV),
+                                     w, h, cfg=cfg)
+                check(not bool(aux.overflow),
+                      f"phase8e {w}x{h}: a ring pose overflows")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+        try:
+            with urllib.request.urlopen(url + "/", timeout=60) as r:
+                check(r.status == 200 and b"lcgs-tpu viewer" in r.read(),
+                      "phase8e: no page")
+            reset_launches()
+            total_ms, frames = [], []
+            for pos, front, up in poses:
+                q = (f"pos={','.join(map(str, pos))}&front="
+                     f"{','.join(map(str, front))}&up=0,0,1&fov={P8_FOV}"
+                     "&bg=%23000000")
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"{url}/frame?{q}",
+                                            timeout=60) as r:
+                    body = r.read()
+                total_ms.append((time.perf_counter() - t0) * 1e3)
+                check(r.headers["Content-Type"] == "image/jpeg",
+                      "phase8e: not a JPEG")
+                frames.append(body)
+            launches = read_launches()
+            try:
+                urllib.request.urlopen(f"{url}/frame?pos=1,2", timeout=60)
+                bad = 200
+            except urllib.error.HTTPError as e:
+                bad = e.code
+            check(bad == 400, f"phase8e: a malformed query got {bad}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        check(len(srv.parts) == len(poses), "phase8e: requests not timed")
+        check(launches["expand"] == len(poses)
+              and launches["rasterize_vpu"] == len(poses),
+              f"phase8e: launches {launches}")
+        render, d2h, jpeg = (list(x) for x in zip(*srv.parts))
+        rest = [t - r - c - j for t, r, c, j in zip(total_ms, render, d2h,
+                                                     jpeg)]
+        psnrs = []
+        for (pos, front, up), body in zip(poses, frames):
+            got = np.asarray(Image.open(io.BytesIO(body)), np.float64)
+            want = srv.frame_to_hwc(srv.render_frame(pos, front, up, P8_FOV,
+                                                     (0.0, 0.0, 0.0)))
+            mse = float(np.mean((got - want) ** 2))
+            psnrs.append(10.0 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+        check(min(psnrs) >= 35.0, f"phase8e {w}x{h}: PSNR {min(psnrs):.2f}")
+        med = statistics.median
+        log(f"phase8e {w}x{h}: {len(poses)} frames over loopback, median ms: "
+            f"request {med(total_ms):.3f} = render {med(render):.3f} (CUDA "
+            f"events) + copy/flip/cast {med(d2h):.3f} + JPEG "
+            f"{med(jpeg):.3f} + HTTP/parsing {med(rest):.3f}; first frame "
+            f"(kernel build, warm-up) {warm_ms:.1f} ms; JPEG "
+            f"{statistics.mean(map(len, frames)) / 1024:.0f} KiB; served vs "
+            f"render_view PSNR min {min(psnrs):.2f} dB; launches {launches} "
+            f"{tag}")
+        log(f"phase8e {w}x{h}: request ms "
+            f"{' '.join(f'{v:.2f}' for v in total_ms)}")
+
+
+def phase8(dev, card):
+    """The dataset loaders, the train CLI and the viewer at full width: a
+    COLMAP binary dataset of the 2M bench scene's renders (8a), production
+    training through the CLI from its 300K points at 2M capacity (8b), a
+    resume (8c), the CLI's defaults with capacity growth (8d), and the
+    viewer's latency (8e)."""
+    from luisacomputegaussiansplatting_tpu_torch import random_scene
+
+    tag = f"[{card}]"
+    work = os.path.join(ROOT, "build", "chip_smoke", "phase8")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    scene = random_scene(P8_SCENE, seed=0, extent=3.0,
+                         scale_range=(0.004, 0.02), device=dev)
+    root, data = phase8_dataset(scene, work, dev, tag)
+    phase8_train(root, work, dev, tag)
+    phase8_defaults(root, data, work, dev, tag)
+    del data
+    phase8_viewer(scene, dev, tag)
+    log(f"phase8: {time.perf_counter() - t0:.1f} s")
+
+
 def sync(dev):
     import torch
 
@@ -1933,7 +2565,7 @@ def main(argv):
     try:
         card = phase0()
         phase1(dev)
-        phase2()
+        phase2(card)
         rec, ctx = phase3(dev)
         record += rec
         phase4(dev)
@@ -1945,10 +2577,11 @@ def main(argv):
         phase4(dev, "mxu", "phase6 sweep bwd mxu")
         record += phase6(dev)
         phase7(dev, card)
+        phase8(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 0-7 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 0-8 passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def build_shared_library(command, source: str, build_dir: str, name: str,
+                         headers=()):
+    """Compile ``source`` with ``command`` (the compiler and its flags) into
+    ``build_dir/<name>-<hash>.so`` unless that file exists; the hash covers
+    the flags, the source and ``headers``. Returns (path, build seconds or
+    None when the library was already built, the compiler's output). A
+    failed build raises."""
+    digest = hashlib.sha256(" ".join(command[1:]).encode())
+    for p in [source, *headers]:
+        with open(p, "rb") as f:
+            digest.update(f.read())
+    path = os.path.join(build_dir, f"{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path, None, ""
+    os.makedirs(build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    # build to a private name, then rename: a concurrent build never loads
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    proc = subprocess.run([*command, "-o", tmp, source], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"{os.path.basename(command[0])} failed for {source} "
+            f"(rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
 class KernelLib:
     """One ``csrc/<name>.cu`` shared library, built on first use.
 
@@ -86,30 +118,10 @@ class KernelLib:
             self.variant_launches[v] = 0
 
     def _load(self) -> ctypes.CDLL:
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-        for path in [self.source] + [os.path.join(CSRC_DIR, h) for h in headers]:
-            with open(path, "rb") as f:
-                digest.update(f.read())
-        path = os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            # build to a private name, then rename: a concurrent build never
-            # loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, path)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
+        path, self.build_seconds, self.build_log = build_shared_library(
+            [_nvcc(), *NVCC_FLAGS], self.source, BUILD_DIR, self.name,
+            [os.path.join(CSRC_DIR, h) for h in headers])
         lib = ctypes.CDLL(path)
         for fn, (restype, argtypes) in self.signatures.items():
             f = getattr(lib, fn)

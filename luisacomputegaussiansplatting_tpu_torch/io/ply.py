@@ -1,4 +1,5 @@
-"""3DGS PLY scene IO in numpy (port of ``io/ply.py``).
+"""3DGS PLY scene IO (port of ``io/ply.py``): numpy, and the native C++
+loader for the standard binary schema.
 
 Property schema (reference app/gaussians.cpp:84-90): x y z [nx ny nz]
 f_dc_0..2 f_rest_* opacity scale_0..2 rot_0..3, rot stored (w, x, y, z),
@@ -16,6 +17,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..models.gaussians import GaussianScene, from_numpy
+from ..utils.device import resolve_device
 
 _PLY_TO_NP = {
     "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
@@ -72,11 +74,22 @@ def _read_vertex_table(path: str) -> Tuple[Dict[str, np.ndarray], int]:
     return cols, count
 
 
-def load_ply(path, apply_activations: bool = True,
+def load_ply(path, apply_activations: bool = True, use_native: bool = True,
              device="cuda") -> GaussianScene:
     """Load a 3DGS checkpoint PLY into a ``GaussianScene`` on ``device``, by
     default the card (raw stored values with ``apply_activations=False``);
-    without a GPU, pass ``device="cpu"``."""
+    without a GPU, pass ``device="cpu"``.
+
+    The native C++ loader (``io/native.py``) reads the standard binary
+    schema; any other file, or ``use_native=False``, takes numpy."""
+    dev = resolve_device(device)
+    if use_native:
+        from .native import load_gsply_native
+
+        out = load_gsply_native(path, apply_activations)
+        if out is not None:
+            means, sh, opacity, scales, quats = out
+            return from_numpy(means, scales, quats, opacity, sh, dev)
     cols, n = _read_vertex_table(os.fspath(path))
 
     def grab(names):
@@ -101,7 +114,7 @@ def load_ply(path, apply_activations: bool = True,
         opacity = 1.0 / (1.0 + np.exp(-opacity))
         scales = np.exp(scales)
         quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
-    return from_numpy(means, scales, quats, opacity, sh, device)
+    return from_numpy(means, scales, quats, opacity, sh, dev)
 
 
 def save_ply(scene: GaussianScene, path, invert_activations: bool = True,

@@ -1,9 +1,11 @@
-"""Image output (port of ``utils/image.py``).
+"""Image IO (port of ``utils/image.py``).
 
 Reproduces the reference app's post-processing (app/main.cpp:322-340):
 CHW float -> HWC uint8 with a truncating cast and a vertical flip, written
-as PNG. The writer is pure Python (``zlib`` + ``struct``): no imaging
-package is needed.
+as PNG by the native C++ writer (``io/native.py``, the counterpart of the
+reference's stb_image_write) or, with ``use_native=False``, by the
+pure-Python encoder here (``zlib`` + ``struct``). ``read_png`` decodes with
+PIL, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -51,8 +53,22 @@ def encode_png(rgb: np.ndarray) -> bytes:
     )
 
 
-def write_png(path, img_chw, flip_vertical: bool = True) -> None:
+def write_png(path, img_chw, flip_vertical: bool = True,
+              use_native: bool = True) -> None:
     """Write a (3, H, W) float image (array or tensor) as PNG."""
-    data = encode_png(chw_to_png_array(img_chw, flip_vertical))
+    arr = chw_to_png_array(img_chw, flip_vertical)
+    if use_native:
+        from ..io.native import write_png_native
+
+        if write_png_native(path, arr):
+            return
     with open(path, "wb") as f:
-        f.write(data)
+        f.write(encode_png(arr))
+
+
+def read_png(path) -> np.ndarray:
+    """PNG -> (3, H, W) float32 in [0, 1] (no flip)."""
+    from PIL import Image
+
+    arr = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    return np.transpose(arr, (2, 0, 1))

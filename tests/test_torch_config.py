@@ -50,7 +50,11 @@ def test_bad_enum_value_raises(field):
 def test_import_leaves_jax_out():
     code = (
         "import sys, luisacomputegaussiansplatting_tpu_torch, "
-        "luisacomputegaussiansplatting_tpu_torch.apps.render_cli; "
+        "luisacomputegaussiansplatting_tpu_torch.apps.render_cli, "
+        "luisacomputegaussiansplatting_tpu_torch.apps.train_cli, "
+        "luisacomputegaussiansplatting_tpu_torch.apps.viewer, "
+        "luisacomputegaussiansplatting_tpu_torch.io.dataset, "
+        "luisacomputegaussiansplatting_tpu_torch.io.native; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('luisacomputegaussiansplatting_tpu.') "
         "or m == 'luisacomputegaussiansplatting_tpu']; "
@@ -72,3 +76,23 @@ def test_no_port_source_imports_jax():
     for path in sources:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+def test_native_build_writes_nothing_under_native(tmp_path, monkeypatch):
+    """``io/native.py`` compiles ``native/*.cpp`` into its build directory
+    and leaves ``native/`` as it found it."""
+    from luisacomputegaussiansplatting_tpu_torch.io import native
+
+    def listing():
+        d = native.NATIVE_DIR
+        return sorted((f, os.stat(os.path.join(d, f)).st_mtime_ns)
+                      for f in os.listdir(d))
+
+    before = listing()
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "native"))
+    assert native.build_native()
+    built = sorted(os.listdir(tmp_path / "native"))
+    assert [f.rsplit("-", 1)[0] for f in built] == ["ply_loader", "png_writer"]
+    assert all(f.endswith(".so") for f in built)
+    assert listing() == before

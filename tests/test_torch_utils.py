@@ -213,7 +213,7 @@ def test_image_conversion_and_png(tmp_path):
     np.testing.assert_array_equal(pimg.chw_to_png_array(t(img)),
                                   jimg.chw_to_png_array(img))
     path = tmp_path / "x.png"
-    pimg.write_png(path, img)
+    pimg.write_png(path, img, use_native=False)
     back = jimg.read_png(path)  # PIL decodes the pure-Python writer's PNG
     want = jimg.chw_to_png_array(img).astype(np.float32) / 255.0
     np.testing.assert_array_equal(back, np.transpose(want, (2, 0, 1)))
