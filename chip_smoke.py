@@ -86,7 +86,25 @@ PyTorch version, and drives the port's render and training paths end to end:
      defaults over loopback at 1280x720 and 1920x1080, 20 frames on a ring
      each, every request's time in four parts (render by CUDA events;
      copy, flip and cast; JPEG; HTTP), each frame >= 35 dB against
-     ``render_view``, a malformed query answered 400.
+     ``render_view``, a malformed query answered 400;
+  9. the sharded path (``parallel/``) on ``bench.py``'s production
+     configuration at 2M gaussians and 1920x1080 with the sort "2key" and no
+     post-sort trim (the settings the sharded path rejects): (a) the
+     frame's 60 x 34 tiles in 4 bands of 9 tile rows, K2 and K3 in both
+     blend modes on each band's ranges at its first global tile
+     (``tile_offset``) against their plain versions and equal bit for bit
+     to the whole frame's blend; (b) world size 1 over NCCL in this
+     process: ``render_sharded`` forward and backward against
+     ``render_aux`` (image within 2e-5, gradients within GRAD_TOL), exactly
+     one launch of K1, K2 mxu, K3 mxu and K4 f32, the frame's time beside
+     the single-device frame's and its peak memory, five steps of
+     ``make_sharded_train_step`` on a 1x1 mesh with densify and a sharded
+     densify round; (c) four spawned ranks sharing the one card through
+     gloo with CUDA tensors (NCCL takes one rank per device), 500K
+     gaussians each: the assembled image within 2e-5 of 9b's, the gradients
+     within GRAD_TOL, then five training steps on a 2x2 mesh. These are
+     four processes on one card exchanging through the host, not a
+     multi-GPU number.
 
 Every phase runs, in order; to rehearse one, import this module and call
 its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line: the
@@ -139,6 +157,9 @@ FLIP_TOL = 2e-2
 FLIP_SHARE = 1e-5
 GRAD_TOL = 1e-4
 SUM_TOL = 1e-5
+#: K2's colour and T digests on phase 3's (vpu) and phase 6's (mxu) frames:
+#: a change of the blend kernels keeps them (at tile offset 0)
+K2_DIGESTS = {"phase3": "abe890a81d73127e", "phase6": "26de40ffff84368b"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "luisacomputegaussiansplatting_tpu_torch/csrc"
 JAX_OPS = "luisacomputegaussiansplatting_tpu/ops"
@@ -359,7 +380,8 @@ def check_sums(tag, got, want):
     return float((got - want).abs().max()), rel
 
 
-def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg):
+def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg,
+                tile_offset=0):
     """(evaluated, applied) (entry, pixel) pairs of a blend over this
     payload: every in-image pixel against its tile's real entries up to and
     including the one where it stops, and of those the pairs it applies;
@@ -378,7 +400,8 @@ def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg):
     evaluated = applied = 0
     with torch.no_grad():
         for sel in _tile_batches(tile_counts, tw * th, payload.device):
-            pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+            pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th,
+                                       tile_offset)
             r = replay(payload, starts[sel], counts[sel], pixels, cfg)
             if r.t_after.shape[1] == 0:
                 continue
@@ -772,7 +795,10 @@ def phase3(dev):
                                      gx, w, h, cfg)
         blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
         check_blend("phase3", *blend)
-        log(f"phase3: K2 digest {blend_digest(ck, tk)}")
+        digest = blend_digest(ck, tk)
+        log(f"phase3: K2 digest {digest}")
+        check(digest == K2_DIGESTS["phase3"],
+              f"phase3: K2 digest {digest} != {K2_DIGESTS['phase3']}")
         forward_variants(
             "phase3", payload, (bp.tile_starts, bp.tile_counts), gx, gy, w,
             h, cfg, ck, tk, (cp, tp), 5)
@@ -1375,7 +1401,10 @@ def phase6(dev):
         cp, tp = rasterize_reference(payload, *ranges, gx, w, h, cfg)
         blend = blend_diff(ck, tk, cp, tp, gx, gy, w, h, cfg.tile_wh)
         check_blend("phase6 mxu", *blend)
-        log(f"phase6: K2 mxu digest {blend_digest(ck, tk)}")
+        digest = blend_digest(ck, tk)
+        log(f"phase6: K2 mxu digest {digest}")
+        check(digest == K2_DIGESTS["phase6"],
+              f"phase6: K2 digest {digest} != {K2_DIGESTS['phase6']}")
         forward_variants("phase6 mxu", payload, ranges, gx, gy, w, h, cfg,
                          ck, tk, (cp, tp), 5)
         cfg_vpu = dataclasses.replace(cfg, blend_quad="vpu")
@@ -2483,6 +2512,568 @@ def phase8(dev, card):
     log(f"phase8: {time.perf_counter() - t0:.1f} s")
 
 
+#: phase 9: the production frame's tile grid (60 x 34 tiles of 32) in bands
+P9_BANDS = 4
+P9_REPS = 10
+P9_STEPS = 5
+#: phase 9c: ranks sharing the one card, each its quarter of the 2M scene
+P9_RANKS = 4
+P9_RANK_PAIRS = 1_500_000  # max_pairs_local of a 9c rank (CHUNK-rounded)
+#: keyword arguments of ``bench_cuda.scene_camera_config`` that shrink
+#: phase 9's scene for a rehearsal on the CPU (none on the card)
+P9_SHRINK = {}
+
+
+def p9_config(dev, shrink=None):
+    """The production configuration of ``bench.py`` with the two settings
+    the sharded path rejects changed: the sort is "2key" and the post-sort
+    trim is off (``_validate_sharded_cfg``)."""
+    import bench_cuda
+
+    return bench_cuda.scene_camera_config(
+        "headline", dev, sort_mode="2key", max_pairs_sorted=None,
+        **(P9_SHRINK if shrink is None else shrink))
+
+
+def p9_timed(fn, dev):
+    """(result, milliseconds) of one run: CUDA events on the card, the host
+    clock in a CPU rehearsal."""
+    if dev.type == "cuda":
+        return timed_once(fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def band_blend_diff(ck, tk, cp, tp):
+    """(max |diff|, pixels over TOL, pixels) between two blends of a band's
+    tiles, over colour and T (pixels past the image are 0 in both)."""
+    import torch
+
+    d = torch.maximum((ck - cp).abs().amax(dim=2), (tk - tp).abs()[..., 0])
+    check(bool(torch.isfinite(ck).all() and torch.isfinite(tk).all()),
+          "non-finite band blend")
+    return float(d.max()), int((d > TOL).sum()), d.numel()
+
+
+def phase9a(scene, cam, cfg):
+    """K2 and K3, vpu and mxu, on each band of the production frame's ranges
+    at its first global tile: against their plain versions with the same
+    offset, and equal bit for bit to the whole-frame blend's tiles (K2) and
+    to the whole-frame backward's slots (K3). Returns the kernels-line
+    records of band 1's mxu blends (its time beside its plain version's)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_backward_reference, rasterize_reference
+
+    w, h = cam.width, cam.height
+    _proj, (gx, gy), binned, payload = bin_and_payload(scene, cam, cfg)
+    on_card = payload.is_cuda
+    rows = -(-gy // P9_BANDS)
+    fields = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b")
+    out = {}
+    for blend in ("vpu", "mxu"):
+        bcfg = dataclasses.replace(cfg, blend_quad=blend)
+        ranges = (binned.tile_starts, binned.tile_counts)
+        with torch.no_grad():
+            c_all, t_all = rasterize_forward(payload, *ranges, gx, w, h, bcfg)
+            residual = random_residual(c_all, t_all, 9)
+            d_all = rasterize_backward(payload, *ranges, residual, gx, w, h,
+                                       bcfg)
+        for d in range(P9_BANDS):
+            lo, hi = d * rows * gx, min((d + 1) * rows * gx, gx * gy)
+            if hi <= lo:  # a band wholly past the image
+                continue
+            tag = f"phase9a {blend} band {d} (tiles {lo}-{hi - 1})"
+            band = (binned.tile_starts[lo:hi], binned.tile_counts[lo:hi])
+            slots = torch.zeros(payload.shape[1], dtype=torch.bool,
+                                device=payload.device)
+            for s, c in zip(band[0].tolist(), band[1].tolist()):
+                slots[s:s + c] = True
+            keep = slots & (binned.entry_gid >= 0)
+            with torch.no_grad():
+                ck, tk = rasterize_forward(payload, *band, gx, w, h, bcfg,
+                                           tile_offset=lo)
+                cp, tp = rasterize_reference(payload, *band, gx, w, h, bcfg,
+                                             tile_offset=lo)
+                # a block blends one tile on its own: the kernels give a
+                # band's tiles the whole frame's bits (the plain versions,
+                # batched by shape, need not)
+                check(not on_card or (torch.equal(ck, c_all[lo:hi])
+                                      and torch.equal(tk, t_all[lo:hi])),
+                      f"{tag}: K2 at the offset differs from the whole "
+                      "frame's tiles")
+                max_d = band_blend_diff(ck, tk, cp, tp)
+                check_blend(tag, *max_d)
+                dk = rasterize_backward(payload, *band, residual[lo:hi], gx,
+                                        w, h, bcfg, tile_offset=lo)
+                check(not on_card
+                      or torch.equal(dk[:, slots], d_all[:, slots]),
+                      f"{tag}: K3 at the offset differs from the whole "
+                      "frame's slots")
+                dp = rasterize_backward_reference(
+                    payload, *band, residual[lo:hi], gx, w, h, bcfg,
+                    tile_offset=lo)
+                b3 = check_fields(tag, "d_payload", dk.t(), dp.t(), fields,
+                                  rows=keep)
+            if d == 1 and blend == "mxu":
+                out = dict(band=band, lo=lo, residual=residual[lo:hi],
+                           k2_err=max_d[0], k3_err=float(
+                               (dk[:, keep] - dp[:, keep]).abs().max()),
+                           k3_rel=b3)
+        log(f"phase9a {blend}: {P9_BANDS} bands of {rows} tile rows, K2 and "
+            "K3 at each band's offset equal the whole frame's bits and "
+            "their plain versions")
+    # band 1's mxu kernels timed beside their plain versions, with bounds
+    band, lo, res = out["band"], out["lo"], out["residual"]
+    reps = 5
+    with torch.no_grad():
+        k2_ms = cuda_ms(lambda: rasterize_forward(
+            payload, *band, gx, w, h, cfg, tile_offset=lo), reps)
+        k2_plain = cuda_ms(lambda: rasterize_reference(
+            payload, *band, gx, w, h, cfg, tile_offset=lo), 2)
+        k3_ms = cuda_ms(lambda: rasterize_backward(
+            payload, *band, res, gx, w, h, cfg, tile_offset=lo), reps)
+        k3_plain = cuda_ms(lambda: rasterize_backward_reference(
+            payload, *band, res, gx, w, h, cfg, tile_offset=lo), 2)
+        evaluated, applied = pair_counts(payload, *band, gx, w, h, cfg,
+                                         tile_offset=lo)
+    nt = band[0].shape[0]
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    used = int(band[1].sum())
+    k2_bound = bound(used * 9 * 4 + nt * 8 + nt * pix * 16,
+                     evaluated * OPS_PER_PAIR["mxu"]
+                     + applied * OPS_PER_APPLIED["forward"])
+    k3_bound = bound(used * 9 * 4 * 2 + nt * pix * 32 + nt * 8,
+                     evaluated * OPS_PER_PAIR["mxu"]
+                     + applied * OPS_PER_APPLIED["backward"])
+    log(f"phase9a band 1 (offset {lo}, {nt} tiles, {used} entries): mxu "
+        f"blend {k2_ms:.3f} ms (plain {k2_plain:.3f}, bound "
+        f"{k2_bound[0]:.3f} {k2_bound[1]}); mxu backward blend "
+        f"{k3_ms:.3f} ms (plain {k3_plain:.3f}, bound {k3_bound[0]:.3f} "
+        f"{k3_bound[1]}); pairs evaluated {evaluated} applied {applied}")
+    return [
+        {"name": "rasterize_forward_mxu_band", "route": "cuda",
+         "source": f"{PKG}/rasterize.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
+         "max_abs_err": out["k2_err"], "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "rasterize_backward_mxu_band", "route": "cuda",
+         "source": f"{PKG}/rasterize_backward.cu",
+         "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
+         "max_abs_err": out["k3_err"], "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+    ]
+
+
+def p9_frame(shard, cam, mesh, cfg, scfg):
+    """One sharded forward + backward frame (loss = the sum of the rank's
+    band, so the ranks' losses add up to the image sum): (band, aux, the
+    shard's five gradients)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import render_sharded
+
+    band, aux = render_sharded(*shard, cam, mesh, cfg=cfg, scfg=scfg)
+    grads = torch.autograd.grad(band.sum(), shard)
+    return band, aux, grads
+
+
+#: the autograd Functions of the sharded frame, whose backwards a profile
+#: reads beside the forward's ``render_sharded.<stage>`` ranges
+P9_FUNCTIONS = ("_TakeTableRows", "_SliceBuckets", "_ExchangeRows",
+                "_PermuteRows", "_PackGather", "_RasterizeTiles")
+
+
+def p9_stage_profile(fn, dev):
+    """[(stage, ms)] of one profiled call of ``fn`` (a sharded frame): the
+    forward's ``render_sharded.<stage>`` ranges and the backwards of the
+    exchange's Functions, each with the device time of the kernels under
+    it (host time in a CPU rehearsal)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync(dev)
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue  # the ranges' spans on the device timeline
+        name = e.key.replace("autograd::engine::evaluate_function: ", "bwd ")
+        if e.key.startswith("render_sharded.") or (
+                name.startswith("bwd ")
+                and name[4:].removesuffix("Backward") in P9_FUNCTIONS):
+            total = e.device_time_total if dev.type == "cuda" else e.cpu_time_total
+            out.append((name, total / 1e3))
+    return out
+
+
+def p9_sharded_k1_k4(scene, cam, cfg, scfg, n):
+    """K1 at the sharded frame's shapes (the band-padded grid) and K4 f32 on
+    its stream's ids (the tile-sorted local entries, stably sorted by id)
+    with rows of the frame's size: times, plain times, bounds, errors."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import expand_entries
+    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
+    from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
+    from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import band_layout
+
+    lay = band_layout(cam.width, cam.height, cfg, 1)
+    nt = lay.tiles_per_dev
+    l_loc = scfg.max_pairs_local
+    cull_op = cull_opacity(scene, cfg)
+    reps = 5
+    with torch.no_grad():
+        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
+                                 cfg)
+        k, k1_err = compare_expansion(proj, lay.grid_x, nt, l_loc, cull_op,
+                                      cfg.tile_wh, cfg)
+        aabb = int(k[3])
+        k1_ms = cuda_ms(lambda: expand_entries_kernel(
+            proj, lay.grid_x, nt, l_loc, cull_op, cfg.tile_wh,
+            cfg.alpha_min), reps)
+        k1_plain = cuda_ms(lambda: expand_entries(
+            proj, lay.grid_x, nt, l_loc, cull_op, cfg.tile_wh,
+            cfg.alpha_min), reps)
+        _t, order = torch.sort(k[0], stable=False)
+        gid = k[2][order]
+        key = torch.where(gid >= 0, gid, torch.full_like(gid, n))
+        sorted_key, perm = torch.sort(key, stable=True)
+        gen = torch.Generator(device=gid.device).manual_seed(9)
+        rows = torch.randn((gid.shape[0], 9), generator=gen,
+                           device=gid.device)[perm]
+        got = segment_sum_kernel(sorted_key, rows, n, "f32")
+        want = segment_sum_reference(sorted_key, rows, n, "f32")
+        k4_err, _rel = check_sums("phase9b segsum f32", got, want)
+        k4_ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows, n,
+                                                   "f32"), reps)
+        k4_plain = cuda_ms(lambda: segment_sum_reference(
+            sorted_key, rows, n, "f32"), reps)
+        key64 = sorted_key.to(torch.int64)
+        lib_rows = torch.where((sorted_key < n)[:, None], rows, 0.0)
+        acc = torch.zeros((n + 1, 9), device=gid.device)
+        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
+        n_valid = int((sorted_key < n).sum())
+    k1_bound = bound(n * (28 + 24) + l_loc * 12, aabb * 40)
+    k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
+    log(f"phase9b: K1 at the band-padded grid ({nt} tiles, max_pairs_local "
+        f"{l_loc}, AABB slots {aabb}) {k1_ms:.3f} ms (plain {k1_plain:.3f}, "
+        f"bound {k1_bound[0]:.3f} {k1_bound[1]}); K4 f32 on the frame's ids "
+        f"{k4_ms:.3f} ms (plain {k4_plain:.3f}, index_add_ {k4_lib:.3f}, "
+        f"bound {k4_bound[0]:.3f} {k4_bound[1]}), rows summed {n_valid}")
+    return [
+        {"name": "expand_entries_sharded", "route": "cuda",
+         "source": f"{PKG}/expand.cu",
+         "replaces": f"{JAX_OPS}/expand_pallas.py:137",
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
+        {"name": "segment_sum_f32_sharded", "route": "cuda",
+         "source": f"{PKG}/segsum.cu",
+         "replaces": f"{JAX_OPS}/segsum.py:46",
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": k4_lib},
+    ]
+
+
+def p9_train(tag, mesh, cams, scene, cfg, scfg, dev, steps):
+    """``steps`` sharded training steps with densify on ``mesh`` (this
+    rank's shard of a 2M-capacity state with every other row active,
+    opacity logits lowered by 1, towards the full scene's renders of
+    ``cams``),
+    then one sharded densify round. Returns (losses, ms per step, overflow
+    seen, launches of the first step, the round's counters)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import DensifyConfig, DensifyState, init_densify_state, init_train_state
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+    from luisacomputegaussiansplatting_tpu_torch.parallel.train_sharded import densify_sharded, make_sharded_train_step
+    from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView
+
+    n = scene.num_gaussians
+    n_gs = mesh.size(1)
+    g = mesh.get_local_rank("gs")
+    p = n // n_gs
+    mine = slice(g * p, (g + 1) * p)
+    with torch.no_grad():
+        targets = torch.stack([render_aux(*scene.render_args(), c,
+                                          cfg=cfg)[0] for c in cams])
+    start = scene.to_params()
+    start = start._replace(opacity_logits=start.opacity_logits - 1.0)
+    state, opt = init_train_state(type(start)(*(x[mine] for x in start)))
+    # half the rows active, every other one, so each gs shard holds its
+    # share of the entries
+    d_full = init_densify_state(n, n, device=dev)
+    d_full = d_full._replace(active=torch.arange(n, device=dev) % 2 == 0)
+    dstate = DensifyState(*(x[mine].clone() for x in d_full))
+    step, _o, pad = make_sharded_train_step(opt, mesh, cams[0].width,
+                                            cams[0].height, cfg=cfg,
+                                            scfg=scfg, densify=True)
+    views = [c.to_view(dev) for c in cams]
+    views = CameraView(*(torch.stack(x) for x in zip(*views)))
+    padded = pad(targets)
+    del targets
+    losses, ms, over, first = [], [], False, None
+    for i in range(steps):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, dstate, loss, ov = step(state, dstate, views, padded)
+        losses.append(float(loss))  # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+        over = over or bool(ov)
+        if i == 0:
+            first = read_launches()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _p, opt, dstate, info = densify_sharded(
+        state.params, opt, dstate, gen, 3.0, DensifyConfig(), mesh)
+    log(f"{tag}: losses {' '.join(f'{v:.6f}' for v in losses)}; ms per "
+        f"step median {statistics.median(ms):.3f} (all: "
+        f"{' '.join(f'{v:.3f}' for v in ms)}); densify round: "
+        f"+{int(info.n_cloned)} cloned +{int(info.n_split)} split "
+        f"-{int(info.n_pruned)} pruned")
+    return losses, ms, over, first, info
+
+
+def phase9b(scene, cam, cfg, dev, tmp):
+    """World size 1 in this process (NCCL on the card): the sharded frame
+    against the single-device frame, its launches, times and peak memory;
+    then sharded training on a 1x1 mesh and a sharded densify round.
+    Returns (kernels-line records, the frame's launches, the frame's image
+    and gradients for 9c)."""
+    import torch
+    import torch.distributed as dist
+
+    from luisacomputegaussiansplatting_tpu_torch.config import CHUNK
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+    from luisacomputegaussiansplatting_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import ShardedRenderConfig, gather_image
+
+    on_card = dev.type == "cuda"
+    initialize_multihost(f"file://{tmp}/store9b", 1, 0,
+                         backend="nccl" if on_card else "gloo")
+    try:
+        mesh = make_mesh((1,), ("gs",), device=dev.type)
+        cap = -(-cfg.max_pairs // CHUNK) * CHUNK
+        scfg = ShardedRenderConfig(max_pairs_local=cap, exchange_capacity=cap)
+        n = scene.num_gaussians
+        leaves = grad_leaves(scene)
+
+        # the main path: one sharded frame, the launches over exactly it
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        band, aux, grads = p9_frame(leaves, cam, mesh, cfg, scfg)
+        sync(dev)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+        check_launches("phase9b sharded frame", launches, expand=1,
+                       rasterize_mxu=1, rasterize_backward_mxu=1,
+                       segsum_f32=1)
+        check(not bool(aux.overflow), "phase9b: overflow")
+        image = gather_image(band, mesh, cam.width, cam.height)
+
+        # the single-device frame on the same configuration
+        leaves1 = grad_leaves(scene)
+        img1, aux1 = render_aux(*leaves1, cam, cfg=cfg)
+        grads1 = torch.autograd.grad(img1.sum(), leaves1)
+        img_d = float((image - img1.detach()).abs().max())
+        log(f"phase9b: sharded image vs single-device image max|d|="
+            f"{img_d:.3e}; num_rendered sharded {int(aux.num_rendered)} "
+            f"(the expansion's entries), single-device "
+            f"{int(aux1.num_rendered)} (after the cull)")
+        check(img_d <= 2e-5, "phase9b: the sharded image differs from the "
+                             "single-device image")
+        names = ("means", "scales", "quats", "opacities", "sh")
+        for name, a, b in zip(names, grads, grads1):
+            check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+                  f"phase9b: gradient of {name} not finite or zero")
+            check_fields("phase9b", "gradient", a.reshape(-1, 1),
+                         b.reshape(-1, 1), [name])
+        del leaves1, img1, aux1, grads1, band
+
+        # reps of both frames, in turns, each synchronised
+        def sharded():
+            return p9_frame(leaves, cam, mesh, cfg, scfg)[2][0]
+
+        def single():
+            img, _ = render_aux(*leaves, cam, cfg=cfg)
+            return torch.autograd.grad(img.sum(), leaves)[0]
+
+        times = {"sharded": [], "single": []}
+        for _ in range(P9_REPS):
+            for key, fn in (("single", single), ("sharded", sharded)):
+                times[key].append(p9_timed(fn, dev)[1])
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"phase9b: fwd+bwd frame median of {P9_REPS}: sharded (world "
+            f"size 1) {med['sharded']:.3f} ms, single-device "
+            f"{med['single']:.3f} ms, the exchange path "
+            f"{med['sharded'] - med['single']:.3f} ms; peak memory of the "
+            f"sharded frame {peak if peak is None else round(peak, 3)} GiB "
+            f"(all sharded: {' '.join(f'{v:.3f}' for v in times['sharded'])}"
+            f"; single: {' '.join(f'{v:.3f}' for v in times['single'])})")
+        stages = p9_stage_profile(sharded, dev)
+        log("phase9b: one profiled sharded frame, ms of device time under "
+            "each stage: " + "; ".join(f"{k} {v:.3f}" for k, v in stages))
+        records = p9_sharded_k1_k4(scene, cam, cfg, scfg, n)
+        for r, k in zip(records, ("expand", "segsum_f32")):
+            r["launches"] = launches[k]
+        ref = {"image": image.cpu(),
+               "grads": [g.detach().cpu() for g in grads],
+               "num_rendered": int(aux.num_rendered)}
+        del leaves, grads
+
+        # training on a 1x1 mesh, then a sharded densify round
+        mesh2 = make_mesh((1, 1), ("data", "gs"), device=dev.type)
+        losses, _ms, over, first, _info = p9_train(
+            "phase9b training (1x1 mesh)", mesh2, [cam], scene, cfg, scfg,
+            dev, P9_STEPS)
+        check_launches("phase9b training step", first, expand=1,
+                       rasterize_mxu=1, rasterize_backward_mxu=1,
+                       segsum_f32=1)
+        check(not over, "phase9b training: overflow")
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              "phase9b training: the loss did not fall")
+    finally:
+        dist.destroy_process_group()
+    return records, launches, ref
+
+
+def p9c_rank(rank, tmp, dev_type, shrink, rank_pairs):
+    """One of 9c's ranks: its quarter of the 2M scene on the one card,
+    gloo with the card's tensors (NCCL takes one rank per device); the
+    sharded frame, then sharded training on a 2x2 mesh. Rank 0 saves the
+    assembled image, the gathered gradients and the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from luisacomputegaussiansplatting_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import ShardedRenderConfig, gather_image
+    from luisacomputegaussiansplatting_tpu_torch.parallel.train_sharded import exchange_band_halos
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"file://{tmp}/store9c", P9_RANKS, rank,
+                         backend="gloo")
+    try:
+        scene, cam, cfg, _ = p9_config(dev, shrink)
+        n = scene.num_gaussians
+        p = n // P9_RANKS
+        shard = [x[rank * p:(rank + 1) * p].detach().clone()
+                 .requires_grad_(True) for x in scene.render_args()]
+        mesh = make_mesh((P9_RANKS,), ("gs",), device=dev.type)
+        scfg = ShardedRenderConfig(max_pairs_local=rank_pairs)
+        times = []
+        for _ in range(3):  # the first builds nothing (9b did) but warms up
+            reset_launches()
+            (band, aux, grads), ms = p9_timed(
+                lambda: p9_frame(shard, cam, mesh, cfg, scfg), dev)
+            times.append(ms)
+        launches = read_launches()
+        image = gather_image(band, mesh, cam.width, cam.height)
+        group = mesh.get_group("gs")
+        # the SSIM halo swap of a training step: prediction and target of
+        # one band (6 channels) with its neighbours
+        x = torch.rand((6, band.shape[1], band.shape[2]), device=dev)
+        halo_ms = [p9_timed(lambda: exchange_band_halos(x, group, rank,
+                                                        P9_RANKS), dev)[1]
+                   for _ in range(5)]
+        full = []
+        for gr in grads:
+            parts = [torch.empty_like(gr) for _ in range(P9_RANKS)]
+            dist.all_gather(parts, gr.contiguous(), group=group)
+            full.append(torch.cat(parts).cpu())
+        if rank == 0:
+            torch.save({"image": image.cpu(), "grads": full,
+                        "overflow": bool(aux.overflow),
+                        "num_rendered": int(aux.num_rendered),
+                        "frame_ms": times, "launches": launches,
+                        "halo_ms": halo_ms, "band": tuple(x.shape)},
+                       os.path.join(tmp, "p9c_frame.pt"))
+        del band, grads, full, shard
+        mesh2 = make_mesh((2, P9_RANKS // 2), ("data", "gs"), device=dev.type)
+        cams = ring_cameras(cam, 2)
+        losses, ms, over, first, _info = p9_train(
+            f"phase9c training rank {rank} (2x2 mesh)", mesh2, cams, scene,
+            cfg, scfg, dev, P9_STEPS)
+        if rank == 0:
+            with open(os.path.join(tmp, "p9c_train.json"), "w") as f:
+                json.dump({"losses": losses, "ms": ms, "overflow": over,
+                           "launches": first}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase9c(ref, dev, tmp):
+    """Four ranks on the one card through gloo: the assembled frame and the
+    gradients against 9b's, then five training steps on a 2x2 mesh."""
+    import torch
+    import torch.multiprocessing as mp
+
+    mp.start_processes(p9c_rank, args=(tmp, dev.type, P9_SHRINK,
+                                       P9_RANK_PAIRS),
+                       nprocs=P9_RANKS, join=True, start_method="spawn")
+    got = torch.load(os.path.join(tmp, "p9c_frame.pt"))
+    img_d = float((got["image"] - ref["image"]).abs().max())
+    log(f"phase9c: {P9_RANKS} ranks on one card (gloo): image vs 9b max|d|="
+        f"{img_d:.3e}; num_rendered {got['num_rendered']} (9b: "
+        f"{ref['num_rendered']}); overflow {got['overflow']}; sharded frame "
+        f"ms (rank 0, the ranks share the card and exchange through the "
+        f"host): {' '.join(f'{v:.3f}' for v in got['frame_ms'])}; rank 0 "
+        f"launches {got['launches']}; a halo swap of a {got['band']} band "
+        f"ms {' '.join(f'{v:.3f}' for v in got['halo_ms'])}")
+    check(not got["overflow"], "phase9c: overflow")
+    check(img_d <= 2e-5, "phase9c: the image differs from 9b's")
+    names = ("means", "scales", "quats", "opacities", "sh")
+    for name, a, b in zip(names, got["grads"], ref["grads"]):
+        check_fields("phase9c", "gradient", a.reshape(-1, 1),
+                     b.reshape(-1, 1), [name])
+    with open(os.path.join(tmp, "p9c_train.json")) as f:
+        tr = json.load(f)
+    log(f"phase9c training (2x2 mesh, rank 0): losses "
+        f"{' '.join(f'{v:.6f}' for v in tr['losses'])}; ms per step "
+        f"{' '.join(f'{v:.3f}' for v in tr['ms'])}; launches of the first "
+        f"step {tr['launches']}")
+    check(not tr["overflow"], "phase9c training: overflow")
+    check(all(map(math.isfinite, tr["losses"]))
+          and tr["losses"][-1] < tr["losses"][0],
+          "phase9c training: the loss did not fall")
+
+
+def phase9(dev, card):
+    """The sharded path (``parallel/``) on the card: 9a the kernels' tile
+    offset on the production frame's bands, 9b world size 1 over NCCL in
+    this process, 9c four ranks sharing the card through gloo."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    scene, cam, cfg, _ = p9_config(dev)
+    records = phase9a(scene, cam, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, launches, ref = phase9b(scene, cam, cfg, dev, tmp)
+        # the band kernels' launches: those of 9b's sharded frame
+        records[0]["launches"] = launches["rasterize_mxu"]
+        records[1]["launches"] = launches["rasterize_backward_mxu"]
+        records += rec
+        del scene
+        t1 = time.perf_counter()
+        phase9c(ref, dev, tmp)
+    log(f"phase9: 9a+9b {t1 - t0:.1f} s, 9c {time.perf_counter() - t1:.1f} s "
+        f"({card})")
+    return records
+
+
 def sync(dev):
     import torch
 
@@ -2491,9 +3082,9 @@ def sync(dev):
 
 
 def tree_record(dev):
-    """K2's digest and device time and the expansion's device times on
-    phase 3's frame (strict: vpu, no cull) and phase 6's (production: mxu,
-    the cull), through whichever port package is first on ``sys.path``:
+    """K2's and K3's digests (K3 on a seeded residual), K2's device time
+    and the expansion's device times on phase 3's frame (strict: vpu, no
+    cull) and phase 6's (production: mxu, the cull), through whichever port package is first on ``sys.path``:
     ``--compare ROOT`` runs it on the tree at ROOT, so that two trees are
     held to the same bits and timed by the same code. The expansion's
     kernel alone is the device time of its wrapper less that of
@@ -2504,7 +3095,7 @@ def tree_record(dev):
 
     import bench_cuda
     from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel, saturated_ends
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward, rasterize_forward
 
     out = {}
     for frame in ("strict", "production"):
@@ -2529,7 +3120,16 @@ def tree_record(dev):
                       cfg.alpha_min)),
                   "saturated_ends": device_ms(
                       lambda: saturated_ends(proj.tiles_touched))}
-            out[frame] = {"k2_digest": blend_digest(*blend()),
+            color, trans = blend()
+            residual = random_residual(color, trans, 9)
+            d_payload = rasterize_backward(payload, b.tile_starts,
+                                           b.tile_counts, residual, gx,
+                                           cam.width, cam.height, cfg)
+            # K3's digest over the slots the ranges cover (the rest is
+            # never written)
+            used = d_payload[:, :used_slots(b)].contiguous()
+            out[frame] = {"k2_digest": blend_digest(color, trans),
+                          "k3_digest": blend_digest(used, used[:, :0]),
                           "k2_device_ms": device_ms(blend),
                           "k1_device_ms": k1}
         del scene, proj, b, payload, cull_op
@@ -2578,10 +3178,11 @@ def main(argv):
         record += phase6(dev)
         phase7(dev, card)
         phase8(dev, card)
+        record += phase9(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases 0-8 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 0-9 passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,19 @@ checkpoints, and a final graphdeco-compatible PLY export.
 
 Same flags as the JAX CLI, except ``--device`` (default ``cuda``; fails if
 no GPU is present, CPU runs pass ``--device cpu``) in place of
-``--platform``. ``--shard`` is not ported yet and raises; ``--mesh``,
-``--max-pairs-local`` and ``--exchange-capacity`` are accepted.
+``--platform``.
+
+``--shard`` under ``torchrun`` trains on a (data, gs) mesh of the ranks
+(``parallel/train_sharded.py``): ``--mesh DATAxGS`` (default 2 x n/2 when
+the rank count n is even), per-rank capacities ``--max-pairs-local`` and
+``--exchange-capacity``; the gaussian capacity is rounded up to a multiple
+of the gs axis. Rank 0 alone logs, writes the checkpoints (of the gathered
+state) and exports; a resumed rank takes its rows. With one process it
+trains on one device, as the JAX CLI does with one device:
+
+    torchrun --nproc-per-node 4 -m \
+        luisacomputegaussiansplatting_tpu_torch.apps.train_cli --shard \
+        --mesh 2x2 --device cpu --synthetic-gt 300 --res 64x48 ...
 
 The init points and the view choice come from the same numpy generator
 calls, in the same order, as the JAX CLI's; the split noise comes from a
@@ -39,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import RenderConfig
+from ..config import CHUNK, RenderConfig
 from ..io.dataset import (
     load_colmap,
     load_colmap_points3d,
@@ -59,11 +70,20 @@ from ..models.gaussians import GaussianScene, pad_params_to, params_from_numpy
 from ..models.losses import ssim
 from ..models.trainer import (
     TrainConfig,
+    TrainState,
     init_train_state,
     make_batched_train_step,
     make_densify_train_step,
 )
 from ..ops.render import render_view
+from ..parallel.mesh import join_process_group, make_mesh
+from ..parallel.render_sharded import ShardedRenderConfig, derive_exchange_capacity
+from ..parallel.train_sharded import (
+    densify_sharded,
+    gather_shards,
+    make_sharded_train_step,
+    take_rows,
+)
 from ..utils.camera import CameraView
 from ..utils.device import resolve_device
 from ..utils.image import write_png
@@ -133,7 +153,8 @@ def build_parser():
                    help="densify grad threshold in graphdeco's NDC-scaled "
                         "units (their default 2e-4; resolution-independent)")
     p.add_argument("--shard", action="store_true",
-                   help="multi-device training (not yet ported)")
+                   help="view data-parallelism x gaussian/tile sharding on "
+                        "a (data, gs) mesh of the ranks of torchrun")
     p.add_argument("--mesh", type=str, default=None,
                    help="DATAxGS device mesh shape (with --shard)")
     p.add_argument("--max-pairs-local", type=int, default=None,
@@ -212,11 +233,35 @@ def _init_params(args, data, rng, dev):
         dev)
 
 
+def _mesh_shape(args, world: int):
+    """(n_data, n_gs) of ``--mesh``, or the JAX CLI's default: 2 x n/2 when
+    the rank count n is even."""
+    if args.mesh:
+        n_data, n_gs = (int(x) for x in args.mesh.split("x"))
+        return n_data, n_gs
+    n_data = 2 if world % 2 == 0 else 1
+    return n_data, world // n_data
+
+
+def _round_chunk(x: int) -> int:
+    return -(-x // CHUNK) * CHUNK
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.shard:
-        raise NotImplementedError("--shard is not yet ported")
-    dev = resolve_device(args.device)
+    rank, world, dev, started = (join_process_group(args.device)
+                                 if args.shard else (0, 1, args.device, False))
+    try:
+        return _train(args, resolve_device(dev), rank, world)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, dev: torch.device, rank: int, world: int) -> int:
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if world > 1 and dev.type == "cuda":
+        torch.cuda.set_device(dev)  # the rank's card (cuda:LOCAL_RANK)
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -241,20 +286,39 @@ def main(argv=None):
         data = load_colmap(args.colmap, downscale=args.downscale)
         name = os.path.basename(os.path.normpath(args.colmap))
     width, height = data.cameras[0].width, data.cameras[0].height
-    print(f"dataset: {len(data)} views at {width}x{height}, "
-          f"extent {data.scene_extent:.2f}")
+    say(f"dataset: {len(data)} views at {width}x{height}, "
+        f"extent {data.scene_extent:.2f}")
+
+    # ---- the (data, gs) mesh of the ranks --------------------------------
+    mesh = None
+    if world > 1:
+        n_data, n_gs = _mesh_shape(args, world)
+        if n_data * n_gs != world:
+            say(f"error: mesh {args.mesh} != {world} devices", file=sys.stderr)
+            return 2
+        mesh = make_mesh((n_data, n_gs), ("data", "gs"), device=dev.type)
+        args.capacity = -(-args.capacity // n_gs) * n_gs  # shardable
+        say(f"mesh: {n_data} data x {n_gs} gs devices")
+    elif args.shard:
+        say("--shard requested but only one device; running single-chip")
 
     # ---- init -----------------------------------------------------------
     params = _init_params(args, data, rng, dev)
     n0 = params.means.shape[0]
     params = pad_params_to(params, args.capacity)
+    dstate = init_densify_state(n0, args.capacity, device=dev)
+    if mesh is not None:  # this rank's rows of the gs axis
+        p_shard = args.capacity // n_gs
+        mine = slice(mesh.get_local_rank("gs") * p_shard,
+                     (mesh.get_local_rank("gs") + 1) * p_shard)
+        params = type(params)(*(x[mine] for x in params))
+        dstate = type(dstate)(*(x[mine].clone() for x in dstate))
     # graphdeco's spatial_lr_scale: position lr endpoints scale with the
     # scene extent (their cameras_extent)
     tc = TrainConfig(spatial_lr_scale=float(data.scene_extent))
     state, opt = init_train_state(params, tc)
     del params
-    dstate = init_densify_state(n0, args.capacity, device=dev)
-    print(f"init: {n0} gaussians, capacity {args.capacity}")
+    say(f"init: {n0} gaussians, capacity {args.capacity}")
 
     cfg = RenderConfig(max_pairs=args.max_pairs, tile=args.tile,
                        tile_h=args.tile_h, pack_mode=args.pack,
@@ -264,6 +328,15 @@ def main(argv=None):
                        tight_radius=args.tight_radius,
                        tile_cull=args.tile_cull,
                        blend_quad=args.blend)
+    scfg = None
+    if mesh is not None:
+        mpl = _round_chunk(args.max_pairs_local
+                           or max(args.max_pairs // n_gs, CHUNK))
+        # the skew-derived default; overflow still doubles it below
+        bcap = _round_chunk(args.exchange_capacity
+                            or derive_exchange_capacity(mpl, n_gs))
+        scfg = ShardedRenderConfig(max_pairs_local=mpl,
+                                   exchange_capacity=bcap)
     bg = (1.0, 1.0, 1.0) if args.bg == "white" else (0.0, 0.0, 0.0)
     dcfg = DensifyConfig(grad_threshold=args.grad_threshold)
 
@@ -273,23 +346,47 @@ def main(argv=None):
 
     def step_for_degree(deg: int):
         if deg not in _step_cache:
-            make = (make_batched_train_step if args.views_per_step > 1
-                    else make_densify_train_step)
-            _step_cache[deg] = make(opt, width, height, cfg=cfg,
-                                    sh_degree=deg, tc=tc, bg_color=bg)
+            if mesh is not None:
+                step, _opt, pad_t = make_sharded_train_step(
+                    opt, mesh, width, height, cfg=cfg, scfg=scfg,
+                    sh_degree=deg, tc=tc, bg_color=bg, densify=True)
+                _step_cache[deg] = (step, pad_t)
+            else:
+                make = (make_batched_train_step if args.views_per_step > 1
+                        else make_densify_train_step)
+                _step_cache[deg] = make(opt, width, height, cfg=cfg,
+                                        sh_degree=deg, tc=tc, bg_color=bg)
         return _step_cache[deg]
 
     def grow_capacity():
-        """Render-pair overflow: double the static capacity and rebuild the
-        steps (the reference grows its temp buffers x2,
+        """Render-pair overflow: double the static capacities and rebuild
+        the steps (the reference grows its temp buffers x2,
         gs_tile_splatter/impl.cpp:31-61, but here on a *detected* overflow
         instead of silently corrupting past L, app/main.cpp:245)."""
-        nonlocal cfg
+        nonlocal cfg, scfg
         cfg = dataclasses.replace(cfg, max_pairs=cfg.max_pairs * 2)
+        if scfg is not None:
+            scfg = ShardedRenderConfig(
+                max_pairs_local=scfg.max_pairs_local * 2,
+                exchange_capacity=scfg.exchange_capacity * 2,
+            )
         _step_cache.clear()
-        print(f"[overflow] raising max_pairs to {cfg.max_pairs} and "
-              "recompiling (entries were dropped this interval)",
-              file=sys.stderr)
+        say(f"[overflow] raising max_pairs to {cfg.max_pairs} and "
+            "recompiling (entries were dropped this interval)",
+            file=sys.stderr)
+
+    def whole():
+        """(parameters, Adam, DensifyState) of every gaussian: the gathered
+        shards on a mesh (a collective: every rank calls it)."""
+        if mesh is None:
+            return state.params, opt, dstate
+        return gather_shards(state.params, opt, dstate, mesh)
+
+    def num_active() -> int:
+        n = dstate.num_active
+        if mesh is not None:
+            torch.distributed.all_reduce(n, group=mesh.get_group("gs"))
+        return int(n)
 
     ckpt = None
     start_iter = 0
@@ -297,24 +394,37 @@ def main(argv=None):
         ckpt = CheckpointManager(os.path.join(args.out, "ckpt"))
         if args.resume:
             # the parameters, Adam's moments and the densify state are
-            # written in place; the step comes back as a number
-            latest, (state, opt, dstate) = ckpt.restore_latest(
-                (state, opt, dstate))
+            # written in place (on a mesh into the gathered state, whose
+            # rows each rank then takes); the step comes back as a number
+            full_p, full_opt, full_d = whole()
+            latest, (restored, full_opt, full_d) = ckpt.restore_latest(
+                (TrainState(full_p, 0), full_opt, full_d))
             if latest is not None:
+                if mesh is not None:
+                    dstate = take_rows(state.params, opt, restored.params,
+                                       full_opt, full_d, mesh)
+                else:
+                    dstate = full_d
+                state = TrainState(state.params, restored.step)
                 start_iter = latest
-                print(f"resumed from step {latest}")
+                say(f"resumed from step {latest}")
 
     views = [c.to_view(dev) for c in data.cameras]
     targets = [torch.from_numpy(t).to(dev) for t in data.targets]
     densify_until = args.densify_until or args.iters // 2
 
     def eval_render(view):
+        params, _o, d = whole()
         with torch.no_grad():
-            scene = state.params.activate()
+            scene = params.activate()
             img, _ = render_view(*scene.render_args(), view, width, height,
-                                 bg, cfg, args.sh_degree,
-                                 active_mask=dstate.active)
+                                 bg, cfg, args.sh_degree, active_mask=d.active)
         return img
+
+    def stacked(vis):
+        return (CameraView(*(torch.stack(x) for x in
+                             zip(*(views[v] for v in vis)))),
+                torch.stack([targets[v] for v in vis]))
 
     t0 = time.perf_counter()
     last_loss = float("nan")
@@ -327,15 +437,19 @@ def main(argv=None):
         else:
             deg = args.sh_degree
         step_fn = step_for_degree(deg)
-        if args.views_per_step > 1:
-            vis = rng.choice(
+        if mesh is not None:
+            step_s, pad_t = step_fn
+            nv = n_data * args.views_per_step
+            v_batch, t_batch = stacked(rng.choice(len(data), size=nv,
+                                                  replace=nv > len(data)))
+            state, dstate, loss, overflow = step_s(state, dstate, v_batch,
+                                                   pad_t(t_batch))
+        elif args.views_per_step > 1:
+            v_batch, t_batch = stacked(rng.choice(
                 len(data),
                 size=args.views_per_step,
                 replace=args.views_per_step > len(data),
-            )
-            v_batch = CameraView(*(torch.stack(x) for x in
-                                   zip(*(views[v] for v in vis))))
-            t_batch = torch.stack([targets[v] for v in vis])
+            ))
             state, dstate, loss, overflow = step_fn(state, dstate, v_batch,
                                                     t_batch)
         else:
@@ -350,17 +464,23 @@ def main(argv=None):
             and (it + 1) % args.densify_interval == 0
         )
         if do_densify:
-            _, opt, dstate, dinfo = densify_step(
-                state.params, opt, dstate, gen, data.scene_extent, dcfg)
-            print(
+            if mesh is not None:
+                _, opt, dstate, dinfo = densify_sharded(
+                    state.params, opt, dstate, gen, data.scene_extent, dcfg,
+                    mesh)
+            else:
+                _, opt, dstate, dinfo = densify_step(
+                    state.params, opt, dstate, gen, data.scene_extent, dcfg)
+            n_act = num_active()
+            say(
                 f"[{it+1}] densify: +{int(dinfo.n_cloned)} cloned "
                 f"+{int(dinfo.n_split)} split -{int(dinfo.n_pruned)} pruned "
-                f"-> {int(dstate.num_active)} active",
+                f"-> {n_act} active",
                 file=sys.stderr,
             )
             if bool(dinfo.overflow):
-                print(f"[{it+1}] WARNING: capacity full, children dropped",
-                      file=sys.stderr)
+                say(f"[{it+1}] WARNING: capacity full, children dropped",
+                    file=sys.stderr)
         if (
             args.opacity_reset_interval
             and (it + 1) % args.opacity_reset_interval == 0
@@ -370,9 +490,9 @@ def main(argv=None):
 
         if (it + 1) % args.log_every == 0:
             last_loss = float(loss)
-            n_act = int(dstate.num_active)
+            n_act = num_active()
             dt = time.perf_counter() - t0
-            print(
+            say(
                 f"[{it+1}/{args.iters}] loss {last_loss:.5f}  "
                 f"active {n_act}  {(it + 1 - start_iter) / dt:.1f} it/s",
                 flush=True,
@@ -383,7 +503,7 @@ def main(argv=None):
         if args.eval_every and (it + 1) % args.eval_every == 0:
             img = eval_render(views[0])
             s_val = float(ssim(torch.clamp(img, 0, 1), targets[0]))
-            print(
+            say(
                 f"  eval view0 PSNR "
                 f"{psnr(img.cpu().numpy(), data.targets[0]):.2f} dB  "
                 f"SSIM {s_val:.4f}"
@@ -391,9 +511,12 @@ def main(argv=None):
         if ckpt and (it + 1) % args.ckpt_every == 0:
             _sync(dev)
             t1 = time.perf_counter()
-            ckpt.save(it + 1, (state, opt, dstate))
-            print(f"  checkpoint {it + 1} saved in "
-                  f"{time.perf_counter() - t1:.3f} s")
+            full_p, full_opt, full_d = whole()
+            if rank == 0:
+                ckpt.save(it + 1, (TrainState(full_p, state.step), full_opt,
+                                   full_d))
+            say(f"  checkpoint {it + 1} saved in "
+                f"{time.perf_counter() - t1:.3f} s")
 
     if bool(ov_acc):
         grow_capacity()  # report the tail-interval overflow loudly
@@ -401,24 +524,27 @@ def main(argv=None):
         last_loss = float(loss)  # covers runs shorter than log_every
 
     # ---- export ---------------------------------------------------------
+    full_p, _o, full_d = whole()
+    img = eval_render(views[0])
+    if rank != 0:
+        return 0
     _sync(dev)
     t1 = time.perf_counter()
     with torch.no_grad():
-        active = dstate.active
-        packed = GaussianScene(*(x[active] for x in state.params.activate()))
+        active = full_d.active
+        packed = GaussianScene(*(x[active] for x in full_p.activate()))
         out_ply = os.path.join(args.out, f"{name}_trained.ply")
         save_ply(packed, out_ply)
-    print(f"saved {packed.num_gaussians} gaussians to {out_ply} "
-          f"({time.perf_counter() - t1:.3f} s)")
+    say(f"saved {packed.num_gaussians} gaussians to {out_ply} "
+        f"({time.perf_counter() - t1:.3f} s)")
 
-    img = eval_render(views[0])
     final_psnr = psnr(img.cpu().numpy(), data.targets[0])
     final_ssim = float(ssim(torch.clamp(img, 0, 1), targets[0]))
     write_png(os.path.join(args.out, f"{name}_view0.png"), img,
               flip_vertical=False)
     write_png(os.path.join(args.out, f"{name}_view0_target.png"),
               data.targets[0], flip_vertical=False)
-    print(
+    say(
         f"final: loss {last_loss:.5f}, view0 PSNR {final_psnr:.2f} dB, "
         f"SSIM {final_ssim:.4f}"
     )

@@ -126,7 +126,8 @@ rasterize_forward_kernel(const float* __restrict__ payload,  // (9, capacity)
                          const int32_t* __restrict__ tile_counts,
                          const int32_t* __restrict__ pixel_map,  // (threads, P)
                          const int64_t* __restrict__ tile_order,
-                         int grid_x, int width, int height, int tile_w,
+                         int grid_x, int tile_offset, int width, int height,
+                         int tile_w,
                          int tile_h, float alpha_max, float alpha_min,
                          float t_eps, float power_guard,
                          float* __restrict__ out_color,  // (tiles, pix, 3)
@@ -144,7 +145,10 @@ rasterize_forward_kernel(const float* __restrict__ payload,  // (9, capacity)
   const int lane = t & 31;
   const int warp = t >> 5;
   const int tile = (int)tile_order[blockIdx.x];
-  const int tx = (tile % grid_x) * tile_w, ty = (tile / grid_x) * tile_h;
+  // the origin of the tile's place in the whole frame: a band of a sharded
+  // frame (parallel/render_sharded.py) starts at global tile tile_offset
+  const int gtile = tile_offset + tile;
+  const int tx = (gtile % grid_x) * tile_w, ty = (gtile / grid_x) * tile_h;
   const int64_t start = tile_starts[tile];
   const int count = tile_counts[tile];
   const float ln_alpha_min = logf(alpha_min);
@@ -303,8 +307,8 @@ rasterize_forward_kernel(const float* __restrict__ payload,  // (9, capacity)
 
 using ForwardKernel = void (*)(const float*, int64_t, const int32_t*,
                                const int32_t*, const int32_t*, const int64_t*,
-                               int, int, int, int, int, float, float, float,
-                               float, float*, float*);
+                               int, int, int, int, int, int, float, float,
+                               float, float, float*, float*);
 
 template <bool kMxu>
 ForwardKernel pick_kernel(int pix_per_thread) {
@@ -321,25 +325,28 @@ ForwardKernel pick_kernel(int pix_per_thread) {
 // pixel_map: (threads, pix_per_thread) int32 tile-local pixel indices (-1 =
 // none), every pixel of the tile exactly once; threads a multiple of 32,
 // threads * pix_per_thread <= 1024; tile_order: (num_tiles,) int64, a
-// permutation of the tiles, block b blends tile tile_order[b]
+// permutation of the tiles, block b blends tile tile_order[b]; local tile i
+// lies at global tile tile_offset + i of the grid_x-wide grid
 extern "C" int rasterize_forward_launch(
     const float* payload, int64_t capacity, const int32_t* tile_starts,
     const int32_t* tile_counts, const int32_t* pixel_map,
     const int64_t* tile_order, int num_tiles,
-    int threads, int pix_per_thread, int grid_x, int width, int height,
+    int threads, int pix_per_thread, int grid_x, int tile_offset, int width,
+    int height,
     int tile_w, int tile_h, int mxu, float alpha_max, float alpha_min,
     float t_eps, float power_guard, float* out_color, float* out_t,
     cudaStream_t stream) {
   const ForwardKernel kernel = mxu ? pick_kernel<true>(pix_per_thread)
                                    : pick_kernel<false>(pix_per_thread);
   if (kernel == nullptr || tile_order == nullptr || threads <= 0 ||
+      tile_offset < 0 ||
       threads % 32 != 0 ||
       threads * pix_per_thread > kMaxPix ||
       tile_w * tile_h > threads * pix_per_thread)
     return (int)cudaErrorInvalidValue;
   kernel<<<num_tiles, threads, 0, stream>>>(
       payload, capacity, tile_starts, tile_counts, pixel_map, tile_order,
-      grid_x, width, height, tile_w, tile_h, alpha_max, alpha_min, t_eps,
-      power_guard, out_color, out_t);
+      grid_x, tile_offset, width, height, tile_w, tile_h, alpha_max,
+      alpha_min, t_eps, power_guard, out_color, out_t);
   return (int)cudaGetLastError();
 }

@@ -136,7 +136,7 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
                           const int32_t* __restrict__ tile_starts,
                           const int32_t* __restrict__ tile_counts,
                           const float* __restrict__ residual,  // (tiles, pix, 8)
-                          int grid_x, int width, int height,
+                          int grid_x, int tile_offset, int width, int height,
                           int tile_w, int tile_h, float alpha_max,
                           float alpha_min, float t_eps, float power_guard,
                           float* __restrict__ grads) {  // (9, capacity)
@@ -154,7 +154,9 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
   const int warp = t >> 5;
   const int my_field = scatter_field(lane);
   const int tile = blockIdx.x;
-  const int tx = (tile % grid_x) * tile_w, ty = (tile / grid_x) * tile_h;
+  // the tile's place in the whole frame, as in the forward blend
+  const int gtile = tile_offset + tile;
+  const int tx = (gtile % grid_x) * tile_w, ty = (gtile / grid_x) * tile_h;
   const int64_t start = tile_starts[tile];
   const int count = tile_counts[tile];
 
@@ -317,7 +319,8 @@ rasterize_backward_kernel(const float* __restrict__ payload,  // (9, capacity)
 
 using BackwardKernel = void (*)(const float*, int64_t, const int32_t*,
                                 const int32_t*, const float*, int, int, int,
-                                int, int, float, float, float, float, float*);
+                                int, int, int, float, float, float, float,
+                                float*);
 
 template <bool kMxu>
 BackwardKernel pick_kernel(int pix_per_thread) {
@@ -332,17 +335,19 @@ BackwardKernel pick_kernel(int pix_per_thread) {
 }  // namespace
 
 // mxu: 0 = blend_quad "vpu", 1 = "mxu"; pix_per_thread: 1, 2 or 4, with
-// tile_w * tile_h a multiple of 32 * pix_per_thread and at most 1024
+// tile_w * tile_h a multiple of 32 * pix_per_thread and at most 1024;
+// local tile i lies at global tile tile_offset + i of the grid_x-wide grid
 extern "C" int rasterize_backward_launch(
     const float* payload, int64_t capacity, const int32_t* tile_starts,
     const int32_t* tile_counts, const float* residual, int num_tiles,
-    int grid_x, int width, int height, int tile_w, int tile_h,
+    int grid_x, int tile_offset, int width, int height, int tile_w,
+    int tile_h,
     int pix_per_thread, int mxu, float alpha_max, float alpha_min,
     float t_eps, float power_guard, float* grads, cudaStream_t stream) {
   const int pix = tile_w * tile_h;
   const BackwardKernel kernel = mxu ? pick_kernel<true>(pix_per_thread)
                                     : pick_kernel<false>(pix_per_thread);
-  if (kernel == nullptr || pix <= 0 || pix > kMaxPix ||
+  if (kernel == nullptr || pix <= 0 || pix > kMaxPix || tile_offset < 0 ||
       pix % (32 * pix_per_thread) != 0)
     return (int)cudaErrorInvalidValue;
   const int threads = pix / pix_per_thread;
@@ -354,8 +359,8 @@ extern "C" int rasterize_backward_launch(
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<num_tiles, threads, dyn_bytes, stream>>>(
-      payload, capacity, tile_starts, tile_counts, residual, grid_x, width,
-      height, tile_w, tile_h, alpha_max, alpha_min, t_eps, power_guard,
-      grads);
+      payload, capacity, tile_starts, tile_counts, residual, grid_x,
+      tile_offset, width, height, tile_w, tile_h, alpha_max, alpha_min, t_eps,
+      power_guard, grads);
   return (int)cudaGetLastError();
 }

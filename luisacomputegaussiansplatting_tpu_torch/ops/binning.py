@@ -191,6 +191,32 @@ def pack_ranges(sorted_tile, num_tiles: int, capacity: int):
             padded_len.to(torch.int32))
 
 
+def pack_slot_inverse(sorted_tile, tile_starts, num_tiles: int, capacity: int):
+    """Closed-form inverse of :func:`pack_ranges`' slot assignment: entry k
+    of the ascending ``sorted_tile`` (tile t < num_tiles) sits at slot
+    ``tile_starts[t] + k - range_start[t]``, since each tile's range is
+    copied contiguously from its CHUNK-aligned padded start; entries with a
+    sentinel tile (>= num_tiles) map to ``capacity``. Beside
+    ``pack_ranges`` so that the layout and its inverse change together; the
+    sharded backward (``parallel/exchange_vjp.py``) turns the pack gather's
+    VJP into one row gather with it.
+
+    Returns (L,) int32 slots.
+    """
+    dev = sorted_tile.device
+    sorted_tile = sorted_tile.to(torch.int32).contiguous()
+    tids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+    range_start = torch.searchsorted(sorted_tile, tids, right=False,
+                                     out_int32=True)
+    k = torch.arange(sorted_tile.shape[0], dtype=torch.int32, device=dev)
+    t_safe = torch.clamp(sorted_tile, 0, num_tiles - 1).to(torch.int64)
+    # one row gather from the (T, 2) table over the entry stream
+    table = torch.stack([tile_starts.to(torch.int32), range_start], dim=1)
+    t = table[t_safe]
+    return torch.where(sorted_tile < num_tiles, t[:, 0] + (k - t[:, 1]),
+                       torch.full_like(k, capacity))
+
+
 def _sort_entries(tile_id, depth, gid, num_tiles: int, sort_mode: str):
     """Sort entries by (tile, depth) -> (sorted_tile, sorted_gid).
 

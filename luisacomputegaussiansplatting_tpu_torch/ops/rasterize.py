@@ -30,16 +30,16 @@ BLEND_QUADS = ("vpu", "mxu")
 KERNEL = KernelLib("rasterize", {
     "rasterize_forward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
-         _f, _f, _f, _p, _p, _p],
+        [_p, _i64, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+         _f, _f, _f, _f, _p, _p, _p],
     ),
 }, variants=BLEND_QUADS)
 
 BACKWARD_KERNEL = KernelLib("rasterize_backward", {
     "rasterize_backward_launch": (
         ctypes.c_int,
-        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f,
-         _p, _p],
+        [_p, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f,
+         _f, _f, _p, _p],
     ),
 }, variants=BLEND_QUADS)
 
@@ -155,11 +155,21 @@ def _mxu(cfg: RenderConfig) -> int:
     return int(cfg.blend_quad == "mxu")
 
 
+def _check_offset(tile_offset: int, num_tiles: int, grid_x: int):
+    """The band's global tiles [tile_offset, tile_offset + num_tiles) must
+    have int32 indices: the kernels compute their origins in int."""
+    if tile_offset < 0 or tile_offset + num_tiles > 2**31 - 1:
+        raise ValueError(f"tile_offset {tile_offset} out of range")
+
+
 def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
-                      width: int, height: int, cfg: RenderConfig):
+                      width: int, height: int, cfg: RenderConfig,
+                      tile_offset: int = 0):
     """Blend each tile's entries [start, start + count) of the (9, capacity)
     float32 field-major payload (rows: mean x, mean y, conic a, b, c,
-    opacity, r, g, b).
+    opacity, r, g, b). Local tile i lies at global tile ``tile_offset + i``
+    of the ``grid_x``-wide grid (a host integer: a band of a sharded frame
+    passes its first global tile).
 
     Returns (color (num_tiles, pix, 3), transmittance (num_tiles, pix, 1)),
     pix = tile_w * tile_h; T is the value after the last applied entry and
@@ -167,14 +177,15 @@ def rasterize_forward(payload, tile_starts, tile_counts, grid_x: int,
     """
     if payload.device.type == "cpu":
         return rasterize_reference(payload, tile_starts, tile_counts, grid_x,
-                                   width, height, cfg)
+                                   width, height, cfg, tile_offset)
     return _launch_forward(payload, tile_starts, tile_counts, grid_x, width,
-                           height, cfg, forward_launch_shape(*cfg.tile_wh)[1])
+                           height, cfg, forward_launch_shape(*cfg.tile_wh)[1],
+                           tile_offset)
 
 
 def _launch_forward(payload, tile_starts, tile_counts, grid_x: int,
                     width: int, height: int, cfg: RenderConfig,
-                    pixels_per_thread: int):
+                    pixels_per_thread: int, tile_offset: int = 0):
     """``rasterize_forward``'s launch with a given number of pixels a
     thread (``chip_smoke.py`` times the other choice with it). The blocks
     take the tiles in descending order of their entry counts (a
@@ -184,6 +195,7 @@ def _launch_forward(payload, tile_starts, tile_counts, grid_x: int,
                                 tile_counts, cfg)
     pix = tw * th
     num_tiles = tile_starts.shape[0]
+    _check_offset(tile_offset, num_tiles, grid_x)
     dev = payload.device
     pixel_map = _device_pixel_map(tw, th, pixels_per_thread, dev)
     order = torch.argsort(tile_counts, descending=True)
@@ -198,8 +210,8 @@ def _launch_forward(payload, tile_starts, tile_counts, grid_x: int,
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), pixel_map.data_ptr(), order.data_ptr(),
             num_tiles,
-            pixel_map.shape[0], pixels_per_thread, grid_x, width, height, tw,
-            th, _mxu(cfg), cfg.alpha_max, cfg.alpha_min,
+            pixel_map.shape[0], pixels_per_thread, grid_x, tile_offset, width,
+            height, tw, th, _mxu(cfg), cfg.alpha_max, cfg.alpha_min,
             cfg.transmittance_eps, POWER_GUARD, color.data_ptr(),
             trans.data_ptr(), stream,
         )
@@ -210,12 +222,14 @@ def _launch_forward(payload, tile_starts, tile_counts, grid_x: int,
 
 def rasterize_backward(payload, tile_starts, tile_counts, residual,
                        grid_x: int, width: int, height: int,
-                       cfg: RenderConfig):
+                       cfg: RenderConfig, tile_offset: int = 0):
     """Per-entry gradients of the payload fields.
 
     Args:
       residual: (num_tiles, tile_w*tile_h, 8) float32 per pixel: [dL/dC rgb,
         dL/dT, C_final rgb, T_final].
+      tile_offset: the global index of local tile 0 (see
+        :func:`rasterize_forward`).
 
     Returns (9, capacity) float32, laid out as the payload. Entries in a
     tile's range that were clamped at alpha_max, not applied or behind a
@@ -226,21 +240,23 @@ def rasterize_backward(payload, tile_starts, tile_counts, residual,
     if payload.device.type == "cpu":
         return rasterize_backward_reference(payload, tile_starts, tile_counts,
                                             residual, grid_x, width, height,
-                                            cfg)
+                                            cfg, tile_offset)
     return _launch_backward(payload, tile_starts, tile_counts, residual,
                             grid_x, width, height, cfg,
-                            backward_launch_shape(*cfg.tile_wh)[1])
+                            backward_launch_shape(*cfg.tile_wh)[1],
+                            tile_offset)
 
 
 def _launch_backward(payload, tile_starts, tile_counts, residual,
                      grid_x: int, width: int, height: int, cfg: RenderConfig,
-                     pixels_per_thread: int):
+                     pixels_per_thread: int, tile_offset: int = 0):
     """``rasterize_backward``'s launch with a given number of pixels a
     thread (``chip_smoke.py`` times the other choices with it)."""
     tw, th = _check_launch_args("rasterize_backward", payload, tile_starts,
                                 tile_counts, cfg)
     pix = tw * th
     num_tiles = tile_starts.shape[0]
+    _check_offset(tile_offset, num_tiles, grid_x)
     if pixels_per_thread not in BACKWARD_PIXELS_PER_THREAD \
             or pix % (32 * pixels_per_thread):
         raise ValueError(f"tile {tw}x{th}: {pixels_per_thread} pixels a "
@@ -258,7 +274,7 @@ def _launch_backward(payload, tile_starts, tile_counts, residual,
         err = lib.rasterize_backward_launch(
             payload.data_ptr(), payload.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), residual.data_ptr(), num_tiles, grid_x,
-            width, height, tw, th, pixels_per_thread, _mxu(cfg),
+            tile_offset, width, height, tw, th, pixels_per_thread, _mxu(cfg),
             cfg.alpha_max, cfg.alpha_min, cfg.transmittance_eps, POWER_GUARD,
             grads.data_ptr(), stream,
         )
@@ -280,11 +296,12 @@ def make_residual(d_color, d_trans, color, trans):
 class _RasterizeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, payload, tile_starts, tile_counts, grid_x, width, height,
-                cfg):
+                cfg, tile_offset):
         color, trans = rasterize_forward(payload, tile_starts, tile_counts,
-                                         grid_x, width, height, cfg)
+                                         grid_x, width, height, cfg,
+                                         tile_offset)
         ctx.save_for_backward(payload, tile_starts, tile_counts, color, trans)
-        ctx.args = (grid_x, width, height, cfg)
+        ctx.args = (grid_x, width, height, cfg, tile_offset)
         return color, trans
 
     @staticmethod
@@ -293,16 +310,18 @@ class _RasterizeTiles(torch.autograd.Function):
         residual = make_residual(d_color, d_trans, color, trans)
         d_payload = rasterize_backward(payload, tile_starts, tile_counts,
                                        residual, *ctx.args)
-        return d_payload, None, None, None, None, None, None
+        return d_payload, None, None, None, None, None, None, None
 
 
 def rasterize_tiles(payload, tile_starts, tile_counts, grid_x: int,
-                    width: int, height: int, cfg: RenderConfig):
+                    width: int, height: int, cfg: RenderConfig,
+                    tile_offset: int = 0):
     """Differentiable tile rasterization; gradients flow to ``payload`` only
     (the ranges are structural), and only its slots inside a tile's range
-    get a defined one (see :func:`rasterize_backward`).
+    get a defined one (see :func:`rasterize_backward`). ``tile_offset`` is
+    the global index of local tile 0 (see :func:`rasterize_forward`).
 
     Returns (color (num_tiles, pix, 3), transmittance (num_tiles, pix, 1)).
     """
     return _RasterizeTiles.apply(payload, tile_starts, tile_counts, grid_x,
-                                 width, height, cfg)
+                                 width, height, cfg, int(tile_offset))

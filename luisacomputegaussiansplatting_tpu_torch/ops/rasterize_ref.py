@@ -50,12 +50,14 @@ class TilePixels(NamedTuple):
 
 
 def tile_pixel_coords(tiles, grid_x: int, width: int, height: int,
-                      tile_w: int, tile_h: int) -> TilePixels:
+                      tile_w: int, tile_h: int,
+                      tile_offset: int = 0) -> TilePixels:
     """The pixels of ``tiles``, pixel p at (p % tile_w, p // tile_w) of its
     tile; pixels past the image edge start at T = 0 (the reference's
-    ``inside`` predicate)."""
+    ``inside`` predicate). Local tile i is global tile ``tile_offset + i``
+    (a band of a sharded frame, ``parallel/render_sharded.py``)."""
     p = torch.arange(tile_w * tile_h, device=tiles.device)
-    tiles = tiles.to(torch.int64)
+    tiles = tiles.to(torch.int64) + tile_offset
     x0 = (tiles % grid_x)[:, None] * tile_w
     y0 = (tiles // grid_x)[:, None] * tile_h
     ix = x0 + p % tile_w
@@ -180,10 +182,12 @@ def _tile_batches(tile_counts, pix: int, device, budget_share: int = 1):
 
 
 def rasterize_reference(payload, tile_starts, tile_counts, grid_x: int,
-                        width: int, height: int, cfg: RenderConfig):
+                        width: int, height: int, cfg: RenderConfig,
+                        tile_offset: int = 0):
     """Blend every tile's range [start, start + count) of the (9, capacity)
     field-major payload. Works for both pack modes: "chunk" padding entries
-    carry opacity 0 and never contribute.
+    carry opacity 0 and never contribute. Local tile i lies at global tile
+    ``tile_offset + i`` of the ``grid_x``-wide grid.
 
     Returns (color (num_tiles, pix, 3), transmittance (num_tiles, pix, 1))
     with pix = tile_w * tile_h. Plain differentiable torch.
@@ -196,7 +200,8 @@ def rasterize_reference(payload, tile_starts, tile_counts, grid_x: int,
     counts = tile_counts.to(torch.int64)
     order, colors, trans = [], [], []
     for sel in _tile_batches(tile_counts, pix, dev):
-        pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+        pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th,
+                                   tile_offset)
         c, t = _blend_batch(payload, starts[sel], counts[sel], pixels, cfg)
         order.append(sel)
         colors.append(c)
@@ -253,10 +258,11 @@ def _backward_batch(payload, starts, counts, res, pixels: TilePixels,
 
 def rasterize_backward_reference(payload, tile_starts, tile_counts, residual,
                                  grid_x: int, width: int, height: int,
-                                 cfg: RenderConfig):
+                                 cfg: RenderConfig, tile_offset: int = 0):
     """The plain backward blend: per-entry gradients (9, capacity) of the
     payload fields from the per-pixel ``residual`` (num_tiles, pix, 8) =
-    [dL/dC rgb, dL/dT, C_final rgb, T_final].
+    [dL/dC rgb, dL/dT, C_final rgb, T_final]; ``tile_offset`` as in
+    :func:`rasterize_reference`.
 
     The same tile batches as :func:`rasterize_reference`, with no autograd
     graph (autograd through the forward would keep every (entry, pixel)
@@ -274,7 +280,8 @@ def rasterize_backward_reference(payload, tile_starts, tile_counts, residual,
     with torch.no_grad():
         # about twice the forward's live tensors per batch: half the budget
         for sel in _tile_batches(tile_counts, pix, dev, budget_share=2):
-            pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th)
+            pixels = tile_pixel_coords(sel, grid_x, width, height, tw, th,
+                                       tile_offset)
             g, r = _backward_batch(payload, starts[sel], counts[sel],
                                    residual[sel], pixels, cfg)
             grads[:, r.idx[r.in_range]] = g[r.in_range].t()

@@ -10,7 +10,10 @@ plain version of that pass is :func:`segment_starts_reference`), then one
 thread per output id over its rows. No float atomics, the same bits on
 every run. ``dtype="bf16"`` rounds every row value to bf16 (round to
 nearest even) before it is added; the sums stay float32. CPU tensors take
-the plain version, ``index_add_`` into a zeroed table.
+the plain version of the kernel's two passes after the same sort
+(:func:`segment_sum_sorted_reference`), which adds no scatter (the sharded
+backward is held to none); :func:`segment_sum_reference`, ``index_add_``
+into a zeroed table, is the plain version the card holds the kernel to.
 
 The JAX package's int32 bf16-pair packing and one-hot MXU strips are TPU
 devices and are not carried over; its ``method`` knob ("ride" or
@@ -84,6 +87,22 @@ def segment_starts_reference(sorted_ids, n_out: int):
                               out_int32=True)
 
 
+def segment_sum_sorted_reference(sorted_ids, rows, n_out: int,
+                                 dtype: str = "f32"):
+    """The plain version of the kernel's two passes over ascending ids: the
+    segment starts, then each id's rows summed in order
+    (``torch.segment_reduce``); ids outside [0, n_out) are dropped."""
+    starts = segment_starts_reference(sorted_ids.contiguous(), n_out)
+    lo, hi = int(starts[0]), int(starts[-1])
+    lengths = (starts[1:] - starts[:-1]).to(torch.int64)
+    vals = _round_rows(rows[lo:hi], dtype).to(torch.float32)
+    if n_out == 0 or hi == lo:
+        return torch.zeros((n_out, rows.shape[1]), dtype=torch.float32,
+                           device=rows.device)
+    return torch.segment_reduce(vals, "sum", lengths=lengths, axis=0,
+                                initial=0.0)
+
+
 def _check_sorted_ids(fn: str, sorted_ids, n_out: int) -> None:
     require_cuda_tensors(fn, sorted_ids)
     if sorted_ids.dtype != torch.int32 or sorted_ids.dim() != 1:
@@ -151,7 +170,8 @@ def segment_sum_sorted(sorted_gid, sorted_rows, n_out: int,
     give zeros. Returns (n_out, cols) float32."""
     _check(dtype, sorted_rows.shape[1])
     if sorted_rows.device.type == "cpu":
-        return segment_sum_reference(sorted_gid, sorted_rows, n_out, dtype)
+        return segment_sum_sorted_reference(sorted_gid, sorted_rows, n_out,
+                                            dtype)
     return segment_sum_kernel(sorted_gid, sorted_rows, n_out, dtype)
 
 
@@ -172,12 +192,10 @@ def reduce_fields_by_id(gid, field_rows, n_out: int, dtype: str = "f32",
               else torch.stack(list(field_rows)))
     _check(dtype, fields.shape[0], method)
     key = torch.where(gid >= 0, gid, torch.full_like(gid, n_out))
-    if fields.device.type == "cpu":
-        return segment_sum_reference(key, fields.t(), n_out, dtype)
     # stable: a fixed order within each id, so the sums repeat bit for bit
     sorted_key, perm = torch.sort(key.to(torch.int32), stable=True)
     sorted_fields = fields[:, perm]  # one gather, field-major
-    return segment_sum_kernel(sorted_key, sorted_fields.t(), n_out, dtype)
+    return segment_sum_sorted(sorted_key, sorted_fields.t(), n_out, dtype)
 
 
 def reduce_rows_by_id(gid, rows, n_out: int, dtype: str = "f32"):

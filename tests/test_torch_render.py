@@ -108,8 +108,11 @@ def test_cli_fails_loudly_without_gpu_and_on_unported_flags(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             render_cli.main(base)
-    with pytest.raises(NotImplementedError, match="shard"):
-        render_cli.main(base + ["--device", "cpu", "--shard"])
+    # --shard is ported: on one process it renders on one device, as the
+    # JAX CLI does with one device (tests/test_torch_cli_shard.py has the
+    # ranks)
+    assert render_cli.main(base + ["--device", "cpu", "--shard"]) == 0
+    assert (tmp_path / "synthetic10_cpu.png").exists()
 
 
 def test_cli_blend_mxu_matches_vpu(tmp_path):
