@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare ROOT
+    python3 chip_smoke.py --compare ROOT [--grads FILE]
 
 Builds the hand-written kernels from ``luisacomputegaussiansplatting_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each against its plain
@@ -55,7 +55,9 @@ PyTorch version, and drives the port's render and training paths end to end:
      (the longest segment logged), the timed frames and five training
      steps; the north star (6M gaussians) through ``run_config``; and one
      production frame under ``torch.profiler``
-     (``utils/profiling.frame_profile``);
+     (``utils/profiling.frame_profile``), with the device ms of add_,
+     fill_ and copy_ and of what select_backward ran, which must be none:
+     the columns cross through ``utils/packing.py``;
   7. densifying, batched training at the production configuration: capacity
      2M from 1M actives (the bench scene's first half, means moved by
      N(0, 0.01), opacity logits lowered by 1) towards the full scene's
@@ -68,7 +70,8 @@ PyTorch version, and drives the port's render and training paths end to end:
      (``check_round``), as does a second round on copies of the state with
      a ``percent_dense`` at which it splits; then the four kernels against
      their plain versions on one ring view's stages with the active mask
-     (``check_masked_view``); inactive rows stay parked and culled;
+     (``check_masked_view``); one profiled batched step, with phase 6's op
+     sums and no select_backward; inactive rows stay parked and culled;
   8. the dataset loaders, the train CLI and the viewer: (a) a COLMAP
      binary model in mip-NeRF-360 layout (``sparse/0/*.bin``, ``images/``)
      of 8 renders of the 2M bench scene at 1920x1080 on the bench camera's
@@ -107,11 +110,17 @@ PyTorch version, and drives the port's render and training paths end to end:
      multi-GPU number.
 
 Every phase runs, in order; to rehearse one, import this module and call
-its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line: the
-forward blend's digests and device times and the expansion's device times
-on phase 3's and phase 6's frames, computed by the port package of the tree
-at ROOT (to hold another tree's kernels to this one's bits and time both
-with the same code).
+its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line,
+computed by the port package of the tree at ROOT (to hold another tree to
+this one's bits and time and profile both with the same code): on phase
+3's and phase 6's frames, the forward and backward blends' digests, K2's
+and the expansion's device times, and the differentiable frame's image,
+five-gradient and background digests, median ms, peak GiB, busy ms and
+the op sums of phase 6's profile; then phase 7's batched step: the
+digests of its gradients and statistics, its ms, peak GiB, busy ms and op
+sums. With ``--grads FILE`` the first tree saves the batched step's
+gradients there and each later tree prints its max relative difference
+from them.
 
 BLEND_TOL: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of the
 pixels (transmittance-stop flips), which stay <= 2e-2.
@@ -608,6 +617,41 @@ def blend_digest(color, trans):
     h = hashlib.sha256(color.contiguous().cpu().numpy().tobytes())
     h.update(trans.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def tensor_digest(t):
+    """sha256 (first 16 hex digits) of a tensor's float32 values, with 0.0
+    added first: -0.0 and +0.0 digest alike (a sum into a zero-filled
+    buffer turns a lone -0.0 into +0.0)."""
+    import hashlib
+
+    v = (t.detach().float() + 0.0).contiguous().cpu().numpy()
+    return hashlib.sha256(v.tobytes()).hexdigest()[:16]
+
+
+#: the ops a full-size zero-filled cotangent per column runs as: each
+#: ``aten::select_backward`` fills a buffer the size of its input (fill_)
+#: and writes its column (copy_); the engine adds the buffers (add_)
+COTANGENT_OPS = ("aten::add_", "aten::fill_", "aten::copy_")
+
+
+def op_sums(prof):
+    """Device ms of a ``FrameProfile``: the self time of add_, fill_ and
+    copy_, and the whole time of what select_backward ran."""
+    self_ms = {name: ms for name, ms, _ in prof.ops}
+    out = {op.split("::")[1]: self_ms.get(op, 0.0) for op in COTANGENT_OPS}
+    out["select_backward"] = sum(ms for name, ms, _ in prof.totals
+                                 if name == "aten::select_backward")
+    return out
+
+
+def log_op_sums(tag, prof):
+    sums = op_sums(prof)
+    log(f"{tag}: device ms add_ {sums['add_']:.3f}, fill_ "
+        f"{sums['fill_']:.3f}, copy_ {sums['copy_']:.3f} (sum "
+        f"{sums['add_'] + sums['fill_'] + sums['copy_']:.3f}); ops born of "
+        f"select_backward {sums['select_backward']:.3f}")
+    return sums
 
 
 def forward_variants(tag, payload, ranges, gx, gy, w, h, cfg, color, trans,
@@ -1557,6 +1601,10 @@ def phase6(dev):
         log(f"phase6 profile: top 15 by {what}, of {len(rows)}:")
         for name, ms, calls in rows[:15]:
             log(f"  {ms:9.3f} ms {calls:5d}x  {name[:100]}")
+    # the columns cross through utils/packing.py: no select_backward
+    sums = log_op_sums("phase6 profile", prof)
+    check(sums["select_backward"] == 0,
+          "phase6 profile: the frame ran select_backward")
 
     # bounds from this run's inputs (as phases 3 and 5)
     nt = gx * gy
@@ -1772,31 +1820,29 @@ def check_masked_view(tag, params, active, cam, cfg, card):
         f"{st['f32'][3]:.2e} bf16 {st['bf16'][3]:.2e} {card}")
 
 
-def phase7(dev, card):
-    """Densifying, batched training at the production configuration: 2M
-    capacity from 1M actives at 1920x1080, B = 4 views a step."""
+P7_VIEWS = 4
+
+
+def batched_setup(dev):
+    """Phase 7's start, through whichever port package is first on
+    ``sys.path``: (cfg, cams, views, targets, the state and its optimizer,
+    the densify state, the batched step). The bench scene's first half at
+    2M capacity, means moved by N(0, 0.01), opacity logits lowered by 1;
+    the targets are the full scene's renders from ``P7_VIEWS`` views on the
+    bench camera's ring."""
     import torch
 
     import bench_cuda
-    from luisacomputegaussiansplatting_tpu_torch.models import (
-        DensifyConfig, init_densify_state, init_train_state,
-        make_batched_train_step, make_densify_train_step, pad_params_to,
-        reset_opacity)
+    from luisacomputegaussiansplatting_tpu_torch.models import init_densify_state, init_train_state, make_batched_train_step, pad_params_to
     from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
     from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView
-    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import call_profile
 
-    on_card = dev.type == "cuda"
     scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline", dev)
-    w, h = cam.width, cam.height
     cap = scene.means.shape[0]
     n0 = cap // 2
-    n_views = 4
-    extent = 3.0
-    cams = ring_cameras(cam, n_views)
+    cams = ring_cameras(cam, P7_VIEWS)
     views = CameraView(*(torch.stack(x) for x in
                          zip(*(c.to_view(dev) for c in cams))))
-    # the targets: the full scene's renders from the four views
     targets = []
     with torch.no_grad():
         for i, c in enumerate(cams):
@@ -1804,8 +1850,6 @@ def phase7(dev, card):
             check(not bool(aux.overflow), f"phase7: target {i} overflows")
             targets.append(img)
     targets = torch.stack(targets)
-    # the start: the scene's first half, means moved by N(0, 0.01), opacity
-    # logits lowered by 1, at the full capacity
     gen = torch.Generator(device=dev).manual_seed(7)
     start = scene.to_params()
     start = start._replace(
@@ -1818,7 +1862,26 @@ def phase7(dev, card):
     state, opt = init_train_state(pad_params_to(start, cap))
     del start
     dstate = init_densify_state(n0, cap, device=dev)
-    bstep = make_batched_train_step(opt, w, h, cfg=cfg)
+    bstep = make_batched_train_step(opt, cam.width, cam.height, cfg=cfg)
+    return cfg, cams, views, targets, state, opt, dstate, bstep
+
+
+def phase7(dev, card):
+    """Densifying, batched training at the production configuration: 2M
+    capacity from 1M actives at 1920x1080, B = 4 views a step."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import DensifyConfig, make_densify_train_step, reset_opacity
+    from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import call_profile
+
+    on_card = dev.type == "cuda"
+    cfg, cams, views, targets, state, opt, dstate, bstep = batched_setup(dev)
+    w, h = cams[0].width, cams[0].height
+    cap = state.params.means.shape[0]
+    n0 = int(dstate.active.sum())
+    n_views = P7_VIEWS
+    extent = 3.0
     per_step = dict(expand=n_views, rasterize_mxu=n_views,
                     rasterize_backward_mxu=n_views, segsum_bf16=n_views)
     tag = f"[{card}]"
@@ -1906,6 +1969,9 @@ def phase7(dev, card):
         log(f"phase7 profile: one batched step {prof.wall_ms:.3f} ms with "
             f"the profiler on, device busy {prof.busy_ms:.3f} ms: share "
             f"{prof.busy_share:.3f} {tag}")
+        sums = log_op_sums(f"phase7 profile {tag}", prof)
+        check(sums["select_backward"] == 0,
+              "phase7 profile: the step ran select_backward")
     log("phase7 profile: top 12 ops by self device ms (host ms off the "
         f"card), of {len(prof.ops)} {tag}:")
     for name, op_ms, calls in prof.ops[:12]:
@@ -3081,22 +3147,133 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def tree_record(dev):
+GRAD_NAMES = ("means", "scales", "quats", "opacities", "sh", "bg")
+
+
+def own_call_profile():
+    """``utils/profiling.call_profile`` of this script's own tree, loaded
+    from its file, so that ``--compare`` profiles every tree with the same
+    code (the module imports only torch at its top)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "luisacomputegaussiansplatting_tpu_torch",
+                        "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_profiling",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.call_profile
+
+
+def diff_frame_record(scene, cam, cfg, dev, profile):
+    """The differentiable frame of phases 5 and 6 (loss = image sum over a
+    zero background, backward to the five groups and the background)
+    through the tree's ``render_aux``: digests of the image and the six
+    gradients, the median of 5 chained frames after one, the peak memory
+    over them, and one profiled frame's busy ms and op sums."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
+
+    leaves = grad_leaves(scene)
+
+    def frame(bg):
+        img, _aux = render_aux(*leaves, cam, bg_color=bg, cfg=cfg)
+        loss = img.sum()
+        return img, loss.detach(), torch.autograd.grad(loss, [*leaves, bg])
+
+    bg = torch.zeros(3, device=dev, requires_grad=True)
+    img, val, grads = frame(bg)
+    out = {"image": tensor_digest(img)}
+    out.update({name: tensor_digest(g) for name, g in zip(GRAD_NAMES, grads)})
+    del img, grads
+    torch.cuda.reset_peak_memory_stats(dev)
+    frames = []
+    for _ in range(5):
+        bg_i = (bg.detach() + val * 1e-20).requires_grad_(True)
+        (_img, val, _g), ms = timed_once(lambda: frame(bg_i))
+        frames.append(ms)
+    del _img, _g
+    out["frame_ms"] = statistics.median(frames)
+    out["frames_ms"] = frames
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    prof = profile(lambda: frame(bg.detach().clone().requires_grad_(True)),
+                   dev)
+    out["busy_ms"] = prof.busy_ms
+    out["op_ms"] = op_sums(prof)
+    return out
+
+
+def batched_record(dev, profile, grads_file=None):
+    """Phase 7's batched step (B = 4) from its start through the tree's
+    package: the loss, digests of the six groups' gradients and of the
+    accumulated ``grad_sum`` after the first step, the steps' times and
+    peak memory, one profiled step's busy ms and op sums. With
+    ``grads_file``, the first tree run saves those gradients there and each
+    later one gives each group's max |diff| over the saved max |value|."""
+    import torch
+
+    _cfg, _cams, views, targets, state, _opt, dstate, bstep = \
+        batched_setup(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, dstate, loss, overflow = bstep(state, dstate, views, targets)
+    check(not bool(overflow), "compare: the batched step overflows")
+    groups = dict(zip(state.params._fields,
+                      (p.grad for p in state.params)))
+    groups["grad_sum"] = dstate.grad_sum
+    out = {"loss": float(loss),
+           "digests": {k: tensor_digest(v) for k, v in groups.items()}}
+    if grads_file and os.path.exists(grads_file):
+        ref = torch.load(grads_file)
+        out["max_rel_to_saved"] = {
+            k: float((v - ref[k].to(dev)).abs().max()
+                     / ref[k].abs().max().clamp_min(1e-30))
+            for k, v in groups.items()}
+    elif grads_file:
+        torch.save({k: v.detach().cpu() for k, v in groups.items()},
+                   grads_file)
+        out["saved_to"] = grads_file
+    del groups
+    steps = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, dstate, loss, _ = bstep(state, dstate, views, targets)
+        float(loss)  # synchronises
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = statistics.median(steps)
+    out["steps_ms"] = steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    def one_step():
+        nonlocal state, dstate
+        state, dstate, step_loss, _ = bstep(state, dstate, views, targets)
+        return float(step_loss)
+
+    prof = profile(one_step, dev)
+    out["busy_ms"] = prof.busy_ms
+    out["op_ms"] = op_sums(prof)
+    return out
+
+
+def tree_record(dev, grads_file=None):
     """K2's and K3's digests (K3 on a seeded residual), K2's device time
     and the expansion's device times on phase 3's frame (strict: vpu, no
-    cull) and phase 6's (production: mxu, the cull), through whichever port package is first on ``sys.path``:
-    ``--compare ROOT`` runs it on the tree at ROOT, so that two trees are
-    held to the same bits and timed by the same code. The expansion's
-    kernel alone is the device time of its wrapper less that of
-    ``saturated_ends``, the prefix sums that a tree's wrapper runs before
-    its launch (this tree's wrapper runs all of them but the saturation,
-    which its kernel does)."""
+    cull) and phase 6's (production: mxu, the cull), then on each frame the
+    differentiable frame (``diff_frame_record``), and phase 7's batched
+    step (``batched_record``), through whichever port package is first on
+    ``sys.path``: ``--compare ROOT`` runs it on the tree at ROOT, so that
+    two trees are held to the same bits and timed and profiled by the same
+    code. The expansion's kernel alone is the device time of its wrapper
+    less that of ``saturated_ends``, the prefix sums that a tree's wrapper
+    runs before its launch (this tree's wrapper runs all of them but the
+    saturation, which its kernel does)."""
     import torch
 
     import bench_cuda
     from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel, saturated_ends
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward, rasterize_forward
 
+    profile = own_call_profile()
     out = {}
     for frame in ("strict", "production"):
         if frame == "strict":
@@ -3132,7 +3309,11 @@ def tree_record(dev):
                           "k3_digest": blend_digest(used, used[:, :0]),
                           "k2_device_ms": device_ms(blend),
                           "k1_device_ms": k1}
-        del scene, proj, b, payload, cull_op
+        del proj, b, payload, cull_op, color, trans, residual, d_payload, used
+        out[frame]["diff_frame"] = diff_frame_record(scene, cam, cfg, dev,
+                                                     profile)
+        del scene
+    out["batched"] = batched_record(dev, profile, grads_file)
     return out
 
 
@@ -3142,19 +3323,22 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if argv[:1] == ["--compare"] and len(argv) == 2:
-        # K2's digests and the device times only, from the port package of
+    if (argv[:1] == ["--compare"] and len(argv) in (2, 4)
+            and argv[2:3] in ([], ["--grads"])):
+        # the digests, times and op sums only, from the port package of
         # the tree at argv[1]
         sys.path.insert(0, os.path.abspath(argv[1]))
         try:
-            record = tree_record(torch.device("cuda:0"))
+            record = tree_record(torch.device("cuda:0"),
+                                 argv[3] if len(argv) == 4 else None)
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"tree": argv[1], **record}))
         return 0
     if argv:
-        print("usage: chip_smoke.py [--compare ROOT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--compare ROOT [--grads FILE]]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False

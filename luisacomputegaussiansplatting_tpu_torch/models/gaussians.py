@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.packing import stack_cols, unstack_cols
 
 
 class GaussianParams(NamedTuple):
@@ -32,10 +33,9 @@ class GaussianParams(NamedTuple):
     def activate(self) -> "GaussianScene":
         """exp(scales), sigmoid(opacity), normalised quaternions
         (reference app/gaussians.cpp:137-168)."""
-        q = self.quats
-        qx, qy, qz, qw = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+        qx, qy, qz, qw = unstack_cols(self.quats)
         inv = torch.rsqrt(qx * qx + qy * qy + qz * qz + qw * qw)
-        quats = torch.stack([qx * inv, qy * inv, qz * inv, qw * inv], dim=1)
+        quats = stack_cols(qx * inv, qy * inv, qz * inv, qw * inv)
         return GaussianScene(
             means=self.means,
             scales=torch.exp(self.log_scales),

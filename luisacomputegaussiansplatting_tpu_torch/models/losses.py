@@ -39,7 +39,8 @@ def _blur(img, window):
     kw = w.reshape(1, 1, 1, size).expand(c, 1, 1, size)
     x = F.conv2d(img[None], kh, padding=(size // 2, 0), groups=c)
     x = F.conv2d(x, kw, padding=(0, size // 2), groups=c)
-    return x[0]
+    # squeeze, not [0]: its backward is a view, not a zero-filled buffer
+    return x.squeeze(0)
 
 
 def ssim_map(img0, img1, c1: float = 0.01**2, c2: float = 0.03**2):
@@ -48,14 +49,14 @@ def ssim_map(img0, img1, c1: float = 0.01**2, c2: float = 0.03**2):
     # one stacked blur of the five moment images
     stacked = torch.cat([img0, img1, img0 * img0, img1 * img1, img0 * img1],
                         dim=0)
-    b = _blur(stacked, _ssim_window())
-    mu0, mu1 = b[:c], b[c:2 * c]
+    # one split: its backward is one cat, not a zero-filled buffer a slice
+    mu0, mu1, b00, b11, b01 = _blur(stacked, _ssim_window()).split(c)
     mu00 = mu0 * mu0
     mu11 = mu1 * mu1
     mu01 = mu0 * mu1
-    s00 = b[2 * c:3 * c] - mu00
-    s11 = b[3 * c:4 * c] - mu11
-    s01 = b[4 * c:] - mu01
+    s00 = b00 - mu00
+    s11 = b11 - mu11
+    s01 = b01 - mu01
     num = (2 * mu01 + c1) * (2 * s01 + c2)
     den = (mu00 + mu11 + c1) * (s00 + s11 + c2)
     return num / den

@@ -211,6 +211,9 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
         probe = torch.zeros((n_views, params.means.shape[0], 2),
                             dtype=torch.float32, device=params.means.device,
                             requires_grad=True)
+        # unbind, not probe[v]: its backward is one stack, not a
+        # zero-filled (B, C, 2) buffer per view
+        probes = probe.unbind(0)
         scene = params.activate()
         losses, radii, overflow = [], [], []
         for v in range(n_views):
@@ -218,7 +221,7 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
                 scene.means, scene.scales, scene.quats, scene.opacities,
                 scene.sh, CameraView(*(x[v] for x in views)), width, height,
                 bg_color, cfg, sh_degree, active_mask=dstate.active,
-                means2d_probe=probe[v],
+                means2d_probe=probes[v],
             )
             losses.append(d_ssim_l1_loss(img, targets[v], tc.ssim_weight))
             radii.append(aux.radii)

@@ -21,6 +21,7 @@ from ..utils.gaussian import (
     ewa_project_cov_comps,
     view_rotate_cov_elems,
 )
+from ..utils.packing import stack_cols, unstack_cols
 from ..utils.transform import ndc2pix
 
 
@@ -109,7 +110,9 @@ def project_gaussians(means3d, scales, quats_xyzw, camera, cfg=RenderConfig(),
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 
-    mx, my, mz = means3d[:, 0], means3d[:, 1], means3d[:, 2]
+    # per-gaussian math on (N,) columns; they cross in and out through
+    # utils/packing.py, as in the JAX package
+    mx, my, mz = unstack_cols(means3d)
     px = mx * view3[0, 0] + my * view3[0, 1] + mz * view3[0, 2] + view[0, 3]
     py = mx * view3[1, 0] + my * view3[1, 1] + mz * view3[1, 2] + view[1, 3]
     depth = mx * view3[2, 0] + my * view3[2, 1] + mz * view3[2, 2] + view[2, 3]
@@ -121,17 +124,16 @@ def project_gaussians(means3d, scales, quats_xyzw, camera, cfg=RenderConfig(),
     pix_x = ndc2pix(px / tan_fovx * inv_w, width)
     pix_y = ndc2pix(py / tan_fovy * inv_w, height)
     if means2d_probe is not None:
-        pix_x = pix_x + means2d_probe[:, 0]
-        pix_y = pix_y + means2d_probe[:, 1]
-    means2d = torch.stack([pix_x, pix_y], dim=1)
+        prx, pry = unstack_cols(means2d_probe)
+        pix_x = pix_x + prx
+        pix_y = pix_y + pry
+    means2d = stack_cols(pix_x, pix_y)
 
-    sx, sy, sz = scales[:, 0], scales[:, 1], scales[:, 2]
+    sx, sy, sz = unstack_cols(scales)
     if scale_modifier != 1.0:
         sx, sy, sz = (sx * scale_modifier, sy * scale_modifier,
                       sz * scale_modifier)
-    q = quats_xyzw
-    cov3d = covariance_3d_elems((sx, sy, sz), (q[:, 0], q[:, 1], q[:, 2],
-                                               q[:, 3]))
+    cov3d = covariance_3d_elems((sx, sy, sz), unstack_cols(quats_xyzw))
     sigma_view = view_rotate_cov_elems(cov3d, view3, ewa_mode)
     tx, ty, tz = clamp_to_frustum_comps(px, py, safe_z, tan_fovx, tan_fovy,
                                         cfg.frustum_clamp)
@@ -162,7 +164,7 @@ def project_gaussians(means3d, scales, quats_xyzw, camera, cfg=RenderConfig(),
     (ca, cb, cc), radius = conic_and_radius_comps(
         a, b, c, cfg.lowpass, cfg.radius_sigma, cfg.det_eps, tight_sigma
     )
-    conic = torch.stack([ca, cb, cc], dim=1)
+    conic = stack_cols(ca, cb, cc)
     zero = torch.zeros_like(radius)
     radius = torch.where(in_front, radius, zero)
     if active_mask is not None:

@@ -19,6 +19,7 @@ import torch
 
 from ..config import TILE, RenderConfig
 from ..utils.camera import Camera, CameraView
+from ..utils.packing import stack_cols, unstack_cols
 from .binning import bin_gaussians, bin_gaussians_nopack
 from .projection import ProjectedGaussians, _tile_wh, project_gaussians, tile_grid
 from .rasterize import rasterize_tiles
@@ -49,9 +50,11 @@ def _selection_opacity(opacities, cfg: RenderConfig):
 def payload_table(proj: ProjectedGaussians, colors, opacities):
     """(N, 9) float32 per-gaussian payload rows in the kernel's field order:
     mean x, mean y, conic a, b, c, opacity, r, g, b (differentiable)."""
-    table = torch.cat(
-        [proj.means2d, proj.conic, opacities.reshape(-1, 1), colors], dim=1
-    ).to(torch.float32)
+    mx, my = unstack_cols(proj.means2d)
+    ca, cb, cc = unstack_cols(proj.conic)
+    r, g, b = unstack_cols(colors)
+    table = stack_cols(mx, my, ca, cb, cc, opacities.reshape(-1), r, g,
+                       b).to(torch.float32)
     assert table.shape[1] == FIELDS
     return table
 
@@ -122,7 +125,8 @@ def _tiles_to_image(color, trans, grid_x: int, grid_y: int, width: int,
         x = x.permute(4, 0, 2, 1, 3).reshape(c, grid_y * th, grid_x * tw)
         return x[:, :height, :width]
 
-    return reshape(color), reshape(trans)[0]
+    # squeeze, not [0]: its backward is a view, not a zero-filled buffer
+    return reshape(color), reshape(trans).squeeze(0)
 
 
 class RenderStages(NamedTuple):

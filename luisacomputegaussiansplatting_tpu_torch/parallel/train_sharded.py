@@ -174,6 +174,7 @@ def make_sharded_train_step(opt: torch.optim.Adam, mesh, width: int,
         probe = (torch.zeros((v_loc, p_shard, 2), dtype=torch.float32,
                              device=dev, requires_grad=True)
                  if densify else None)
+        probes = probe.unbind(0) if densify else None
         scene = params.activate()
         l1 = ss = 0.0
         radii, overflow = [], []
@@ -186,7 +187,7 @@ def make_sharded_train_step(opt: torch.optim.Adam, mesh, width: int,
                 layout=lay, width=width, height=height, sh_degree=sh_degree,
                 cfg=cfg, scfg=scfg, ewa_mode=ewa_mode,
                 active_mask=dstate.active if densify else None,
-                means2d_probe=probe[i] if densify else None)
+                means2d_probe=probes[i] if densify else None)
             l1_v, ss_v = _band_photometric_sums(
                 band, targets[v, :, rows, :], g_rank, gs_group, n_gs,
                 lay.band_h, width, height)

@@ -311,6 +311,10 @@ class FrameProfile(NamedTuple):
     ops: List[Tuple[str, float, int]]
     #: (kernel, ms, calls) of the device events by name (empty on the CPU)
     kernels: List[Tuple[str, float, int]]
+    #: (op, ms, calls), most time first: each op's device time with that of
+    #: the ops it called (``aten::select_backward``'s fill and copy, say);
+    #: empty on the CPU
+    totals: List[Tuple[str, float, int]]
 
 
 def _union_ms(spans) -> float:
@@ -360,6 +364,10 @@ def call_profile(fn: Callable, dev: torch.device) -> FrameProfile:
         ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
                if e.self_device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CPU]
+        totals = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                         for e in avg if e.device_time_total > 0
+                         and e.device_type == torch.autograd.DeviceType.CPU),
+                        key=lambda x: -x[1])
         dev_events = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
         by_name: Dict[str, List[float]] = {}
@@ -375,6 +383,6 @@ def call_profile(fn: Callable, dev: torch.device) -> FrameProfile:
     else:
         ops = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in avg
                if e.self_cpu_time_total > 0]
-        kernels, busy, share = [], None, None
+        kernels, busy, share, totals = [], None, None, []
     ops.sort(key=lambda x: -x[1])
-    return FrameProfile(dev.type, wall_ms, busy, share, ops, kernels)
+    return FrameProfile(dev.type, wall_ms, busy, share, ops, kernels, totals)

@@ -4,12 +4,16 @@ Constants and band polynomials follow the canonical 3DGS formulation
 (reference lcgs/include/lcgs/util/sh.hpp:12-138); the colour is
 ``clamp(sum_bands + 0.5, 0, 1)`` (lcgs/src/sh_preprocessor.cpp:150-153).
 Plain differentiable torch: autograd gives the direction gradients too.
+Columns cross in and out through ``utils/packing.py``, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .packing import stack_cols, unstack_cols
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -83,16 +87,19 @@ def eval_sh_color(sh_coeffs, dirs, degree: int):
 
     Returns (N, 3) RGB in [0, 1].
     """
+    n, k_tot = sh_coeffs.shape[0], sh_coeffs.shape[1]
     k = num_sh_coeffs(degree)
-    basis = sh_basis_comps(dirs[:, 0], dirs[:, 1], dirs[:, 2], degree)
+    x, y, z = unstack_cols(dirs)
+    basis = sh_basis_comps(x, y, z, degree)
+    sh_flat = unstack_cols(sh_coeffs.reshape(n, k_tot * 3))  # 3K x (N,)
     chans = []
     for c in range(3):
         # same left-to-right accumulation as the JAX package
         acc = 0.5
         for i in range(k):
-            acc = acc + basis[i] * sh_coeffs[:, i, c]
+            acc = acc + basis[i] * sh_flat[i * 3 + c]
         chans.append(torch.clamp(acc, 0.0, 1.0))
-    return torch.stack(chans, dim=1)
+    return stack_cols(*chans)
 
 
 def sh_from_color(color):
