@@ -60,6 +60,7 @@ def test_import_leaves_jax_out():
         "luisacomputegaussiansplatting_tpu_torch.parallel.exchange_vjp, "
         "luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded, "
         "luisacomputegaussiansplatting_tpu_torch.parallel.train_sharded, "
+        "luisacomputegaussiansplatting_tpu_torch.scripts.real_scene_proof, "
         "luisacomputegaussiansplatting_tpu_torch.utils.packing; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('luisacomputegaussiansplatting_tpu.') "
