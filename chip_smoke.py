@@ -18,7 +18,9 @@ PyTorch version, and drives the port's render and training paths end to end:
      16, 32 and 32x16, both pack modes, cull off and on — the expansion
      kernel must equal the plain expansion bit for bit, the blend kernel
      must agree with the plain rasterizer within BLEND_TOL below, at every
-     number of pixels a thread, each instance the same bits;
+     number of pixels a thread, each instance the same bits; the fused
+     sort's fallback (2^22 tiles) and threshold (2^19 - 1 tiles) and the
+     near cull (``NEAR_MEANS``) equal to the same calls on the CPU;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
      on the 2M bench scene from its PLY (the native loader) at 1920x1080
      with the strict defaults and the reference's L (``--max-pairs`` 20M):
@@ -47,7 +49,9 @@ PyTorch version, and drives the port's render and training paths end to end:
      no-pack, cull, trim, fused sort, bf16 payload and gradient reduction,
      ``blend_quad="mxu"``) through ``bench_cuda.run_config``'s scene and
      frame at 2M gaussians and 1920x1080: one forward + backward frame with
-     its launch counts (no vpu blend), the mxu blend kernels against their
+     its launch counts (no vpu blend), three ring views indexed from a
+     stacked CameraView bit-identical to single frames in image,
+     ``num_rendered`` and gradients, the mxu blend kernels against their
      plain versions on the frame's payload and residual (each at every
      number of pixels a thread; the forward's digest), the five groups'
      gradients against the all-plain backward, the mxu image against the
@@ -101,11 +105,13 @@ PyTorch version, and drives the port's render and training paths end to end:
      ``render_aux`` (image within 2e-5, gradients within GRAD_TOL), exactly
      one launch of K1, K2 mxu, K3 mxu and K4 f32, the frame's time beside
      the single-device frame's and its peak memory, five steps of
-     ``make_sharded_train_step`` on a 1x1 mesh with densify and a sharded
-     densify round; (c) four spawned ranks sharing the one card through
-     gloo with CUDA tensors (NCCL takes one rank per device), 500K
-     gaussians each: the assembled image within 2e-5 of 9b's, the gradients
-     within GRAD_TOL, then five training steps on a 2x2 mesh. These are
+     ``make_sharded_train_step`` on a 1x1 mesh with densify (the first
+     profiled: its backward runs no scatter-add) and a sharded densify
+     round; (c) four spawned ranks sharing the one card through gloo with
+     CUDA tensors (NCCL takes one rank per device), 500K gaussians each:
+     the assembled image within 2e-5 of 9b's, the gradients within
+     GRAD_TOL, then five training steps on a 2x2 mesh (the first profiled
+     as in 9b on every rank). These are
      four processes on one card exchanging through the host, not a
      multi-GPU number.
   10. the real-scene quality proof
@@ -619,6 +625,68 @@ def check_adversarial_fanouts(name, dev):
                 f"max_pairs {max_pairs}, kept {kept}")
 
 
+#: phase 1: the grids of tests/test_torch_binning.py's fused-sort cases,
+#: (tiles, whether "fused" falls back to "2key"), and the means of
+#: tests/test_torch_projection.py's near cull (z = 0.1 and behind the
+#: camera culled; two at exactly ``near`` kept)
+FUSED_GRIDS = ((1 << 22, True), ((1 << 19) - 1, False))
+NEAR_MEANS = ((0, 0, 0.1), (0, 0, 0.25), (0, 0, -2.0), (0, 0, 3.0),
+              (0, 0, 0.2), (0.01, 0.02, 0.2))
+
+
+def check_sort_and_near_cull(name, dev):
+    """The fused sort's fallback and threshold cases and the projection's
+    near cull on the card against the same calls on the CPU: the sorted
+    (tile, gid) equal exactly (``torch.sort`` on the card is another
+    code), the cull's decisions equal and the radii within 1
+    (``tests/test_projection.py``'s ceil boundaries)."""
+    import numpy as np
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera
+    from luisacomputegaussiansplatting_tpu_torch.ops.binning import _sort_entries
+    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
+
+    n = 4096
+    for num_tiles, falls_back in FUSED_GRIDS:
+        rng = np.random.default_rng(3)
+        cpu = [torch.from_numpy(x) for x in (
+            rng.integers(0, num_tiles, n).astype(np.int32),
+            rng.uniform(0.2, 30.0, n).astype(np.float32),
+            np.arange(n, dtype=np.int32))]
+        card = [x.to(dev) for x in cpu]
+        want = _sort_entries(*cpu, num_tiles, "fused")
+        got = _sort_entries(*card, num_tiles, "fused")
+        two = _sort_entries(*card, num_tiles, "2key")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"{name}: the fused sort of {num_tiles} tiles differs from "
+              "the CPU's")
+        check(torch.equal(got[1], two[1]) == falls_back,
+              f"{name}: the fused sort of {num_tiles} tiles "
+              f"{'does not fall' if falls_back else 'falls'} back to 2key")
+        log(f"{name}: fused sort of {n} entries over {num_tiles} tiles equal "
+            f"to the CPU's, {'the' if falls_back else 'not the'} 2-key order")
+
+    means = torch.tensor(NEAR_MEANS, dtype=torch.float32)
+    scales = torch.full(means.shape, 0.05)
+    quats = torch.tensor([[0.0, 0.0, 0.0, 1.0]]).repeat(means.shape[0], 1)
+    cam = look_at_camera((0, 0, 0), (0, 0, 1), (0, 1, 0), width=64,
+                         height=64)
+    with torch.no_grad():
+        want = project_gaussians(means, scales, quats, cam, RenderConfig())
+        got = project_gaussians(means.to(dev), scales.to(dev),
+                                quats.to(dev), cam, RenderConfig())
+    r_card, r_cpu = got.radius.cpu(), want.radius
+    log(f"{name}: near cull, radii card {r_card.tolist()} CPU "
+        f"{r_cpu.tolist()}, valid card {got.valid.cpu().tolist()} CPU "
+        f"{want.valid.tolist()}")
+    check(torch.equal(got.valid.cpu(), want.valid)
+          and torch.equal(r_card > 0, r_cpu > 0)
+          and int((r_card - r_cpu).abs().max()) <= 1
+          and want.valid.tolist() == [False, True, False, True, True, True],
+          f"{name}: the near cull differs from the CPU's")
+
+
 def forward_instances(tile_w, tile_h):
     """The pixels a thread at which K2 can blend a tile: those that make
     whole warps."""
@@ -715,6 +783,7 @@ def phase1(dev, blend="vpu", name="phase1"):
 
     if blend == "vpu":
         check_adversarial_fanouts(name, dev)
+        check_sort_and_near_cull(name, dev)
     for tag, cfg, cam, scene in test_scenes(dev, blend):
         tag = f"{name} {tag}"
         w, h = cam.width, cam.height
@@ -1385,6 +1454,48 @@ def log_frames(tag, res):
         f"peak mem {res['peak_gib']:.2f} GiB; {res['px_s']:.1f} px/s")
 
 
+#: phase 6: views on the bench camera's ring rendered from one stacked
+#: CameraView, as the batched step renders its views
+P6_STACKED_VIEWS = 3
+
+
+def check_stacked_views(scene, cam, cfg, dev):
+    """``P6_STACKED_VIEWS`` ring views, each indexed from a stacked
+    CameraView as ``models/trainer.py``'s batched step does, rendered under
+    autograd (loss = image sum) against single ``render_aux`` frames of the
+    same cameras: image, ``num_rendered`` and the five groups' gradients
+    bit-identical (the kernels use no atomics and their order is fixed)."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux, render_view
+    from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView
+
+    cams = ring_cameras(cam, P6_STACKED_VIEWS)
+    views = CameraView(*(torch.stack(x)
+                         for x in zip(*[c.to_view(dev) for c in cams])))
+    leaves = grad_leaves(scene)
+    names = GRAD_NAMES[:5]
+    counts = []
+    for v, c in enumerate(cams):
+        img, aux = render_view(*leaves, CameraView(*(x[v] for x in views)),
+                               c.width, c.height, cfg=cfg)
+        grads = torch.autograd.grad(img.sum(), leaves)
+        img1, aux1 = render_aux(*leaves, c, cfg=cfg)
+        grads1 = torch.autograd.grad(img1.sum(), leaves)
+        counts.append(int(aux.num_rendered))
+        check(not bool(aux.overflow), f"phase6 stacked view {v}: overflow")
+        check(torch.equal(img, img1),
+              f"phase6 stacked view {v}: the image differs from render_aux's")
+        check(counts[-1] == int(aux1.num_rendered),
+              f"phase6 stacked view {v}: num_rendered differs")
+        for name, a, b in zip(names, grads, grads1):
+            check(torch.equal(a, b), f"phase6 stacked view {v}: the "
+                                     f"gradient of {name} differs")
+    log(f"phase6: {len(cams)} ring views indexed from a stacked CameraView, "
+        f"num_rendered {counts}: image, num_rendered and the five groups' "
+        "gradients bit-identical to single render_aux frames")
+
+
 def phase6(dev):
     """The production slice: bench.py's headline (2M) and north-star (6M)
     configurations at 1920x1080, ``blend_quad="mxu"``."""
@@ -1440,6 +1551,7 @@ def phase6(dev):
     log(f"phase6 headline: 2M gaussians, AABB slots {aabb} of max_pairs "
         f"{cfg.max_pairs}, kept by the cull {kept} of max_pairs_sorted "
         f"{cfg.max_pairs_sorted}, num_rendered {num_rendered}")
+    check_stacked_views(scene, cam, cfg, dev)
 
     # the stages again: the expansion kernel with the cull on the frame's
     # bf16-rounded opacities against the plain expansion, the binning with
@@ -2871,13 +2983,41 @@ def p9_sharded_k1_k4(scene, cam, cfg, scfg, n):
     ]
 
 
+def backward_scatter_check(tag, fn):
+    """``fn()`` (a training step) under the profiler: fails if its backward
+    ran a scatter-add (``utils/profiling.scatter_ops`` of the ops under the
+    autograd engine); logs the backward's aten ops and their counts.
+    Returns (the result, {op: calls})."""
+    import collections
+
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.utils.profiling import backward_events, scatter_ops
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        out = fn()
+    events = backward_events(prof)
+    counts = dict(collections.Counter(
+        e.name for e in events if e.name.startswith("aten::")).most_common())
+    bad = scatter_ops(events)
+    log(f"{tag}: the backward's aten ops (calls): "
+        + ", ".join(f"{k.removeprefix('aten::')} {v}"
+                    for k, v in counts.items()))
+    check(counts, f"{tag}: the profile recorded no backward")
+    check(not bad, f"{tag}: the backward ran scatter-adds {sorted(set(bad))}")
+    return out, counts
+
+
 def p9_train(tag, mesh, cams, scene, cfg, scfg, dev, steps):
     """``steps`` sharded training steps with densify on ``mesh`` (this
     rank's shard of a 2M-capacity state with every other row active,
     opacity logits lowered by 1, towards the full scene's renders of
-    ``cams``),
-    then one sharded densify round. Returns (losses, ms per step, overflow
-    seen, launches of the first step, the round's counters)."""
+    ``cams``), the first under the profiler, whose backward must run no
+    scatter-add (``backward_scatter_check``), then one sharded densify
+    round. Returns (losses, ms per step, overflow seen, launches of the
+    first step, the round's counters)."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.models import DensifyConfig, DensifyState, init_densify_state, init_train_state
@@ -2912,7 +3052,11 @@ def p9_train(tag, mesh, cams, scene, cfg, scfg, dev, steps):
     for i in range(steps):
         reset_launches()
         t0 = time.perf_counter()
-        state, dstate, loss, ov = step(state, dstate, views, padded)
+        if i == 0:
+            (state, dstate, loss, ov), _ = backward_scatter_check(
+                f"{tag} step 0", lambda: step(state, dstate, views, padded))
+        else:
+            state, dstate, loss, ov = step(state, dstate, views, padded)
         losses.append(float(loss))  # synchronises
         ms.append((time.perf_counter() - t0) * 1e3)
         over = over or bool(ov)

@@ -18,6 +18,10 @@ loop (app/main.cpp:225,317-320) and an ImGui FPS counter. Here:
     frame, not in isolated probes, which can get the sign of a change
     wrong once stages overlap or share caches. ``call_profile`` does the
     same for any one call, such as a training step.
+  * ``backward_events`` / ``scatter_ops`` — the ops a profile recorded
+    inside the autograd engine (a backward, without the forward and the
+    optimizer around it), and those of them that add into their output at
+    indices: a backward of the port is held to none of those.
 
 Everything runs on the device of the scene's tensors; the device numbers
 exist only on the card (``frame_profile`` reports host times on the CPU).
@@ -386,3 +390,39 @@ def call_profile(fn: Callable, dev: torch.device) -> FrameProfile:
         kernels, busy, share, totals = [], None, None, []
     ops.sort(key=lambda x: -x[1])
     return FrameProfile(dev.type, wall_ms, busy, share, ops, kernels, totals)
+
+
+#: aten ops that add floats into their output at given indices (float
+#: atomics on the card, whose order varies from run to run)
+SCATTER_OPS = ("index_add", "scatter_add", "scatter_reduce")
+_ENGINE = "autograd::engine::evaluate_function"
+
+
+def _in_backward(event) -> bool:
+    e = event.cpu_parent
+    while e is not None:
+        if e.name.startswith(_ENGINE):
+            return True
+        e = e.cpu_parent
+    return False
+
+
+def backward_events(prof) -> list:
+    """The events of a ``torch.profiler`` profile that ran under the
+    autograd engine: a backward's ops, whatever ran around it."""
+    return [e for e in prof.events() if _in_backward(e)]
+
+
+def scatter_ops(events) -> List[str]:
+    """The names of the profiler events that add into their output:
+    scatter-adds and ``index_put`` with ``accumulate=True`` (read from the
+    recorded inputs: profile with ``record_shapes=True``)."""
+    bad = []
+    for e in events:
+        if any(s in e.name for s in SCATTER_OPS):
+            bad.append(e.name)
+        elif "index_put" in e.name:
+            inputs = getattr(e, "concrete_inputs", None) or []
+            if len(inputs) > 3 and inputs[3] is True:
+                bad.append(e.name + "(accumulate=True)")
+    return bad

@@ -42,9 +42,7 @@ from luisacomputegaussiansplatting_tpu_torch.parallel.train_sharded import (
     make_sharded_train_step,
 )
 from luisacomputegaussiansplatting_tpu_torch.utils.camera import CameraView, look_at_camera
-
-#: ops whose presence in a backward means a float scatter-add
-SCATTER_OPS = ("index_add", "scatter_add", "scatter_reduce")
+from luisacomputegaussiansplatting_tpu_torch.utils.profiling import backward_events, scatter_ops
 
 
 def _entry(rank, fn, world, init_file, out_dir, kwargs):
@@ -107,18 +105,14 @@ def camera(eye=(3.0, -2.5, 2.0), width=64, height=64, fov=70.0):
                           height=height)
 
 
-def _backward_ops(prof):
-    """(name, accumulate flag or None) of the aten ops a profile recorded
-    that add into their output: scatter-adds and accumulating index_put."""
-    bad = []
-    for e in prof.events():
-        if any(s in e.name for s in SCATTER_OPS):
-            bad.append(e.name)
-        elif "index_put" in e.name:
-            inputs = getattr(e, "concrete_inputs", None) or []
-            if len(inputs) > 3 and inputs[3] is True:
-                bad.append(e.name + "(accumulate=True)")
-    return bad
+def profiled(fn):
+    """``fn()`` under the profiler: (its result, the scatter ops of the
+    backwards it ran, the autograd Functions those evaluated)."""
+    with torch.profiler.profile(record_shapes=True) as prof:
+        out = fn()
+    functions = sorted({e.name.split(": ", 1)[1] for e in prof.events()
+                        if e.name.startswith("autograd::engine::")})
+    return out, scatter_ops(backward_events(prof)), functions
 
 
 def render_cases(rank, world, cases):
@@ -158,9 +152,7 @@ def render_cases(rank, world, cases):
             wband = wpad[:, rank * lay.band_h:(rank + 1) * lay.band_h]
             loss = torch.sum(band * wband)
             if case.get("profile"):
-                with torch.profiler.profile(record_shapes=True) as prof:
-                    loss.backward()
-                res["scatter_ops"] = _backward_ops(prof)
+                _, res["scatter_ops"], _ = profiled(loss.backward)
             else:
                 loss.backward()
             res["grads"] = [_np(_gather_rows(x.grad)) for x in shard]
@@ -200,7 +192,9 @@ def train_cases(rank, world, cases):
     the targets' seed, ``steps`` sharded steps with or without densify (and
     inactive rows where ``active_every`` says). Rank 0 returns the losses,
     overflows, the gathered parameters, Adam moments and densify
-    statistics after the steps."""
+    statistics after the steps; with ``profile`` every rank returns the
+    scatter ops of its first step's backward and the autograd Functions
+    that backward evaluated."""
     out = []
     for case in cases:
         mesh = make_mesh(case["mesh"], ("data", "gs"), device="cpu")
@@ -226,21 +220,27 @@ def train_cases(rank, world, cases):
             every = case.get("active_every", 1)
             d_full = d_full._replace(active=torch.arange(n) % every == 0)
             dstate = DensifyState(*(x[g * p:(g + 1) * p] for x in d_full))
-        losses, overflows = [], []
-        for _ in range(case["steps"]):
-            if densify:
-                state, dstate, loss, ov = step_fn(state, dstate, views,
-                                                  targets)
+        losses, overflows, res = [], [], {}
+        for i in range(case["steps"]):
+            args = ((state, dstate, views, targets) if densify
+                    else (state, views, targets))
+            if i == 0 and case.get("profile"):
+                got, res["scatter_ops"], res["functions"] = profiled(
+                    lambda: step_fn(*args))
             else:
-                state, loss, ov = step_fn(state, views, targets)
+                got = step_fn(*args)
+            if densify:
+                state, dstate, loss, ov = got
+            else:
+                state, loss, ov = got
             losses.append(float(loss))
             overflows.append(bool(ov))
-        res = {"losses": losses, "overflows": overflows,
-               "params": [_np(_gather_rows(x.detach(), gs_group))
-                          for x in state.params],
-               "exp_avg": [_np(_gather_rows(opt.state[x]["exp_avg"],
-                                            gs_group))
-                           for x in state.params]}
+        res.update(losses=losses, overflows=overflows,
+                   params=[_np(_gather_rows(x.detach(), gs_group))
+                           for x in state.params],
+                   exp_avg=[_np(_gather_rows(opt.state[x]["exp_avg"],
+                                             gs_group))
+                            for x in state.params])
         if densify:
             res["dstate"] = [_np(_gather_rows(x.to(torch.int32)
                                               if x.dtype == torch.bool else x,

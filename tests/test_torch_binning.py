@@ -132,3 +132,33 @@ def test_kernel_wrapper_rejects_non_cuda_non_cpu_tensors():
     meta = ProjectedGaussians(*(x.to("meta") for x in pproj))
     with pytest.raises(ValueError, match="CUDA"):
         pe.expand_entries_kernel(meta, 6, 24, 1000)
+
+
+#: (num_tiles, whether "fused" falls back to "2key"): 2^22 tiles leave the
+#: depth 32 - 23 = 9 bits, under the 12 the fused key needs; 2^19 - 1 tiles
+#: leave exactly 12, so the fused key stays
+FUSED_GRIDS = {"fallback": (1 << 22, True), "threshold": ((1 << 19) - 1, False)}
+
+
+@pytest.mark.parametrize("grid_key", list(FUSED_GRIDS))
+def test_fused_sort_fallback_huge_grid(grid_key):
+    """``tests/test_binning.py``'s fused-sort fallback: where the tile grid
+    leaves fewer than 12 depth bits, "fused" is the exact 2-key order; at
+    12 bits it is JAX's quantised fused order, which reorders some entries.
+    Both cases equal JAX's ``_sort_entries`` exactly (seed 3 ties no key, so
+    JAX's unstable fused sort has one order)."""
+    num_tiles, falls_back = FUSED_GRIDS[grid_key]
+    rng = np.random.default_rng(3)
+    L = 4096
+    tile = rng.integers(0, num_tiles, L).astype(np.int32)
+    depth = rng.uniform(0.2, 30.0, L).astype(np.float32)
+    gid = np.arange(L, dtype=np.int32)
+    jt, jg = jb._sort_entries(jnp.asarray(tile), jnp.asarray(depth),
+                              jnp.asarray(gid), num_tiles, "fused")
+    args = [torch.from_numpy(x) for x in (tile, depth, gid)]
+    pt, pg = pb._sort_entries(*args, num_tiles, "fused")
+    t2, g2 = pb._sort_entries(*args, num_tiles, "2key")
+    assert_same(pt, jt, "fused tile")
+    assert_same(pg, jg, "fused gid")
+    assert_same(t2, pt, "2-key tile")  # the tile order is exact either way
+    assert torch.equal(pg, g2) == falls_back

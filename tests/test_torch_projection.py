@@ -135,3 +135,36 @@ def test_tile_grid_and_rect(tile):
         p = pproj._tile_rect(t(m2), t(r), 12, 9, mode, tile)
         for a, b in zip(p, j):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+#: ``tests/test_projection.py``'s near-cull means (z = 0.1 and behind the
+#: camera are culled), then two at exactly ``near`` = 0.2, which stay
+NEAR_MEANS = np.array([[0, 0, 0.1], [0, 0, 0.25], [0, 0, -2.0], [0, 0, 3.0],
+                       [0, 0, 0.2], [0.01, 0.02, 0.2]], np.float32)
+
+
+def test_near_cull():
+    """Gaussians in front of ``near`` or behind the camera get radius 0, no
+    tiles and ``valid`` False, as in the JAX package, whose radius,
+    tiles_touched and valid the port equals exactly; ``depth >= near``
+    keeps the two means at depth 0.2 exactly."""
+    n = NEAR_MEANS.shape[0]
+    scales = np.full((n, 3), 0.05, np.float32)
+    quats = np.tile(np.array([0, 0, 0, 1.0], np.float32), (n, 1))
+    eye = ((0, 0, 0), (0, 0, 1), (0, 1, 0))
+    j = jproj.project_gaussians(
+        NEAR_MEANS, scales, quats,
+        look_at_camera(*eye, width=64, height=64), jcfg.RenderConfig())
+    p = pproj.project_gaussians(
+        t(NEAR_MEANS), t(scales), t(quats),
+        pcam.look_at_camera(*eye, width=64, height=64), pcfg.RenderConfig())
+    for name in ("radius", "tiles_touched", "valid"):
+        np.testing.assert_array_equal(getattr(p, name).numpy(),
+                                      np.asarray(getattr(j, name)),
+                                      err_msg=name)
+    radius = p.radius.numpy()
+    assert (radius[[0, 2]] == 0).all() and (radius[[1, 3, 4, 5]] > 0).all()
+    assert p.valid.numpy().tolist() == [False, True, False, True, True, True]
+    near = np.float32(pcfg.RenderConfig().near)
+    np.testing.assert_array_equal(p.depth.numpy()[4:], [near, near])
+    np.testing.assert_array_equal(np.asarray(j.depth)[4:], [near, near])

@@ -37,6 +37,7 @@ from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera as jlo
 from luisacomputegaussiansplatting_tpu_torch.config import RenderConfig
 from luisacomputegaussiansplatting_tpu_torch.io.synthetic import random_scene
 from luisacomputegaussiansplatting_tpu_torch.ops.render import render
+from luisacomputegaussiansplatting_tpu_torch.utils.profiling import backward_events, scatter_ops
 
 torch.set_num_threads(2)
 
@@ -132,15 +133,20 @@ def test_sharded_grads_match_jax(ranks, name):
 
 def test_scatter_detector_sees_a_plain_index_backward():
     """The profiler check below finds the accumulating index_put_ that
-    autograd of plain indexing runs, and an index_add_."""
+    autograd of plain indexing runs, and an index_add_; restricted to the
+    events under the autograd engine it keeps the first and drops the
+    second, which ran outside a backward."""
     x = torch.randn(10, 3, requires_grad=True)
     idx = torch.tensor([0, 3, 3, 7])
     with torch.profiler.profile(record_shapes=True) as prof:
         x[idx].sum().backward()
         torch.zeros(10, 3).index_add_(0, idx, torch.ones(4, 3))
-    found = W._backward_ops(prof)
+    found = scatter_ops(prof.events())
     assert any("accumulate=True" in n for n in found), found
     assert any("index_add" in n for n in found), found
+    found = scatter_ops(backward_events(prof))
+    assert any("accumulate=True" in n for n in found), found
+    assert not any("index_add" in n for n in found), found
 
 
 @pytest.mark.parametrize("name", list(GRAD_CASES))

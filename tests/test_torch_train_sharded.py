@@ -11,6 +11,12 @@ is ``tests/test_torch_train_sharded_steps.py``.
 * The sharded densify round equals the single-device round on the same
   state and noise: parameters, both Adam moments, the DensifyState and the
   counters exactly.
+* ``tests/test_sharding.py``'s scatter-free train step: every rank's
+  backward of one densifying step (the means2d probe, the exchange and the
+  halo-swapped D-SSIM loss) runs no ``index_add``, ``scatter_add``,
+  ``scatter_reduce`` or accumulating ``index_put_``. JAX checks its
+  compiled HLO; the port, the ops that its ``torch.profiler`` trace records
+  under the autograd engine.
 """
 
 
@@ -39,17 +45,17 @@ SCFG = dict(max_pairs_local=8192, exchange_capacity=2048)
 EYES = [(3.0, -2.5, 2.0), (-2.5, 3.0, 1.5)]
 
 
-def train_case(height, steps, densify=False, tseed=5):
+def train_case(height, steps, densify=False, tseed=5, profile=False):
     return dict(mesh=MESH, n=96, seed=21, perturb_seed=3, width=64,
                 height=height, eyes=EYES, target_seed=tseed, cfg=CFG,
                 scfg=SCFG, steps=steps, densify=densify,
-                active_every=2 if densify else 1)
-
+                active_every=2 if densify else 1, profile=profile)
 
 
 CASES = {
     "even": train_case(64, 1),
     "uneven": train_case(48, 1, tseed=6),
+    "scatter": train_case(48, 1, densify=True, tseed=11, profile=True),
 }
 
 @pytest.fixture(scope="module")
@@ -116,3 +122,20 @@ def test_sharded_densify_round_equals_single_device(densify_ranks):
         for key in ("params", "moments", "dstate"):
             for a, b in zip(got[key], want[key]):
                 np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+#: the autograd Functions of the step's backward that the profile must see:
+#: the halo swap, the exchange, the blend and the payload reduction
+STEP_FUNCTIONS = {"_BandHalosBackward", "_ExchangeRowsBackward",
+                  "_RasterizeTilesBackward", "_PackGatherBackward"}
+
+
+def test_sharded_train_step_has_no_scatter(ranks):
+    """No rank's backward of the densifying step on the 2x2 mesh runs a
+    scatter-add, and the profile saw that backward whole."""
+    for rank, r in enumerate(ranks.results()):
+        res = r[list(CASES).index("scatter")]
+        assert res["scatter_ops"] == [], (rank, res["scatter_ops"])
+        assert STEP_FUNCTIONS <= set(res["functions"]), (rank,
+                                                         res["functions"])
+        assert not res["overflows"][0]
