@@ -1,0 +1,7 @@
+"""k3_roofline_share.train_host: ``k3_roofline_share.train``'s reading (see its
+file) in a host-bound training cell, where the host's speed spreads the
+cell's time too widely for a bound and the time itself is read per layer."""
+
+from gsbench.harness import load_module
+
+read = load_module("metrics", "k3_roofline_share.train").read
