@@ -38,6 +38,7 @@ from ..io.synthetic import random_scene
 from ..ops.render import render_view
 from ..utils.camera import look_at_camera
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 _PAGE = """<!doctype html>
 <html><head><meta charset="utf-8"><title>lcgs-tpu viewer</title>
@@ -200,8 +201,9 @@ class ViewerServer:
     def frame_to_hwc(img: torch.Tensor) -> np.ndarray:
         """(3, H, W) frame -> (H, W, 3) uint8 on the host: rows flipped
         upright for the browser (render_cli's PNG convention) and truncated,
-        on the device before the copy."""
-        with torch.no_grad():
+        on the device before the copy (the range ``viewer.frame_to_hwc``
+        while a profiler records)."""
+        with span("viewer.frame_to_hwc"), torch.no_grad():
             hwc = (img.permute(1, 2, 0).flip(0) * 255.0).to(torch.uint8)
         return hwc.cpu().numpy()
 

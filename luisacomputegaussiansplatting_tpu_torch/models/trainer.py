@@ -17,11 +17,18 @@ functions take, as the JAX package passes ``opt``.
 :func:`make_densify_train_step` and :func:`make_batched_train_step` also
 accumulate the densification statistics (``models/densify.py``) through a
 zero means2d probe, and cull the inactive rows through the active mask.
+
+While a profiler records, a step is the range ``train_step`` with the
+layers ``train_step.activate``, ``.loss``, ``.backward``, ``.optimizer``
+and ``.stats`` (each view's ``render_view`` among them), and the backward
+of activation and loss runs under ``train_step.activate.backward`` and
+``train_step.loss.backward`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -29,6 +36,7 @@ import torch
 from ..config import RenderConfig
 from ..ops.render import render_view
 from ..utils.camera import CameraView
+from ..utils.profiling import mark, span
 from .densify import DensifyState, accumulate_stats, ndc_grad_norm
 from .gaussians import GaussianParams
 from .losses import d_ssim_l1_loss
@@ -116,17 +124,51 @@ def init_train_state(params: GaussianParams, tc: TrainConfig = TrainConfig()):
     return TrainState(params=leaves, step=0), make_optimizer(leaves, tc)
 
 
+def _activate(params: GaussianParams):
+    """The activated scene of the leaf ``params``, in its layer range (its
+    backward range runs on through the gradients' accumulation into the
+    leaves, to the end of the backward)."""
+    with span("train_step.activate"):
+        return mark("train_step.activate", params.activate())
+
+
+def _loss(img, target, ssim_weight: float):
+    """The photometric loss of one view, in its layer range."""
+    with span("train_step.loss"):
+        return mark("train_step.loss",
+                    d_ssim_l1_loss(img, target, ssim_weight))
+
+
+def _step_range(step):
+    """``step`` with each call in the range ``train_step``."""
+
+    def traced(*args):
+        with span("train_step"):
+            return step(*args)
+
+    return functools.wraps(step)(traced)
+
+
+def _backward_and_update(opt, loss, tc: TrainConfig, count: int):
+    """Clear the gradients, backward from ``loss``, one Adam update."""
+    opt.zero_grad(set_to_none=True)
+    with span("train_step.backward"):
+        loss.backward()
+    with span("train_step.optimizer"):
+        optimizer_step(opt, tc, count)
+
+
 def photometric_loss(params: GaussianParams, cam_view: CameraView, target,
                      width: int, height: int, bg_color, cfg: RenderConfig,
                      sh_degree: int, ssim_weight: float):
     """(loss, (image, RenderAux)) of the activated ``params`` against the
     (3, H, W) ``target``."""
-    scene = params.activate()
+    scene = _activate(params)
     img, aux = render_view(
         scene.means, scene.scales, scene.quats, scene.opacities, scene.sh,
         cam_view, width, height, bg_color, cfg, sh_degree,
     )
-    return d_ssim_l1_loss(img, target, ssim_weight), (img, aux)
+    return _loss(img, target, ssim_weight), (img, aux)
 
 
 def make_train_step(opt: torch.optim.Adam, width: int, height: int,
@@ -142,13 +184,11 @@ def make_train_step(opt: torch.optim.Adam, width: int, height: int,
             state.params, cam_view, target, width, height, bg_color, cfg,
             sh_degree, tc.ssim_weight,
         )
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer_step(opt, tc, state.step)
+        _backward_and_update(opt, loss, tc, state.step)
         return (TrainState(state.params, state.step + 1),
                 loss.detach(), aux)
 
-    return step
+    return _step_range(step)
 
 
 def make_densify_train_step(opt: torch.optim.Adam, width: int, height: int,
@@ -168,21 +208,20 @@ def make_densify_train_step(opt: torch.optim.Adam, width: int, height: int,
         params = state.params
         probe = torch.zeros((params.means.shape[0], 2), dtype=torch.float32,
                             device=params.means.device, requires_grad=True)
-        scene = params.activate()
+        scene = _activate(params)
         img, aux = render_view(
             scene.means, scene.scales, scene.quats, scene.opacities, scene.sh,
             cam_view, width, height, bg_color, cfg, sh_degree,
             active_mask=dstate.active, means2d_probe=probe,
         )
-        loss = d_ssim_l1_loss(img, target, tc.ssim_weight)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer_step(opt, tc, state.step)
-        dstate = accumulate_stats(dstate, probe.grad, aux.radii, width,
-                                  height)
+        loss = _loss(img, target, tc.ssim_weight)
+        _backward_and_update(opt, loss, tc, state.step)
+        with span("train_step.stats"):
+            dstate = accumulate_stats(dstate, probe.grad, aux.radii, width,
+                                      height)
         return TrainState(params, state.step + 1), dstate, loss.detach(), aux
 
-    return step
+    return _step_range(step)
 
 
 def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
@@ -214,7 +253,7 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
         # unbind, not probe[v]: its backward is one stack, not a
         # zero-filled (B, C, 2) buffer per view
         probes = probe.unbind(0)
-        scene = params.activate()
+        scene = _activate(params)
         losses, radii, overflow = [], [], []
         for v in range(n_views):
             img, aux = render_view(
@@ -223,28 +262,31 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
                 bg_color, cfg, sh_degree, active_mask=dstate.active,
                 means2d_probe=probes[v],
             )
-            losses.append(d_ssim_l1_loss(img, targets[v], tc.ssim_weight))
+            losses.append(_loss(img, targets[v], tc.ssim_weight))
             radii.append(aux.radii)
             overflow.append(aux.overflow)
-        loss = torch.mean(torch.stack(losses))
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer_step(opt, tc, state.step)
+        with span("train_step.loss"):
+            loss = mark("train_step.loss", torch.mean(torch.stack(losses)))
+        _backward_and_update(opt, loss, tc, state.step)
 
-        radii = torch.stack(radii)  # (B, C)
-        visible = radii > 0
-        # probe.grad[v] is dL_v/d probe / B (the loss is the batch mean):
-        # undo the 1/B so each view's norm is a single-view step's
-        g = ndc_grad_norm(probe.grad * float(n_views), width, height)
-        dstate = DensifyState(
-            grad_sum=dstate.grad_sum + torch.sum(torch.where(visible, g, 0.0),
-                                                 dim=0),
-            count=dstate.count + torch.sum(visible, dim=0).to(torch.float32),
-            max_radii=torch.maximum(dstate.max_radii,
-                                    torch.amax(radii, dim=0)),
-            active=dstate.active,
-        )
+        with span("train_step.stats"):
+            radii = torch.stack(radii)  # (B, C)
+            visible = radii > 0
+            # probe.grad[v] is dL_v/d probe / B (the loss is the batch
+            # mean): undo the 1/B so each view's norm is a single-view
+            # step's
+            g = ndc_grad_norm(probe.grad * float(n_views), width, height)
+            dstate = DensifyState(
+                grad_sum=dstate.grad_sum + torch.sum(
+                    torch.where(visible, g, 0.0), dim=0),
+                count=dstate.count + torch.sum(visible, dim=0).to(
+                    torch.float32),
+                max_radii=torch.maximum(dstate.max_radii,
+                                        torch.amax(radii, dim=0)),
+                active=dstate.active,
+            )
+            any_overflow = torch.any(torch.stack(overflow))
         return (TrainState(params, state.step + 1), dstate, loss.detach(),
-                torch.any(torch.stack(overflow)))
+                any_overflow)
 
-    return step
+    return _step_range(step)

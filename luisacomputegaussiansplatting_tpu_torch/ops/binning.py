@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import CHUNK
+from ..utils.profiling import count, span
 from .expand import ellipse_tile_reaches, expand_entries_kernel, saturated_ends
 from .projection import ProjectedGaussians, _tile_wh
 
@@ -261,21 +262,30 @@ def _num_retained(sorted_tile, num_tiles: int):
 def _expand_and_sort(proj, grid_x, num_tiles, max_pairs, opacities, tile,
                      alpha_min, expansion, max_sorted, sort_mode):
     """Expansion + sort + the optional post-sort trim; returns
-    (sorted_tile, sorted_gid, overflow)."""
-    tile_id, depth, gid, total = expand_entries_auto(
-        proj, grid_x, num_tiles, max_pairs, opacities, tile, alpha_min,
-        expansion,
-    )
-    overflow = total > max_pairs
-    sorted_tile, sorted_gid = _sort_entries(tile_id, depth, gid, num_tiles,
-                                            sort_mode)
-    # skip the trim when CHUNK rounding reaches max_pairs (as the JAX package)
-    if max_sorted is not None and _round_up_chunk(max_sorted) < max_pairs:
-        cap = _round_up_chunk(max_sorted)
-        overflow = overflow | (sorted_gid[cap] >= 0)  # a valid entry cut off
-        sorted_tile = sorted_tile[:cap]
-        sorted_gid = sorted_gid[:cap]
-    return sorted_tile, sorted_gid, overflow
+    (sorted_tile, sorted_gid, overflow, the () saturated slot total)."""
+    with span("render_view.expand"):
+        tile_id, depth, gid, total = expand_entries_auto(
+            proj, grid_x, num_tiles, max_pairs, opacities, tile, alpha_min,
+            expansion,
+        )
+        overflow = total > max_pairs
+    with span("render_view.sort"):
+        sorted_tile, sorted_gid = _sort_entries(tile_id, depth, gid,
+                                                num_tiles, sort_mode)
+        # skip the trim when CHUNK rounding reaches max_pairs (as the JAX
+        # package)
+        if max_sorted is not None and _round_up_chunk(max_sorted) < max_pairs:
+            cap = _round_up_chunk(max_sorted)
+            overflow = overflow | (sorted_gid[cap] >= 0)  # a valid entry cut off
+            sorted_tile = sorted_tile[:cap]
+            sorted_gid = sorted_gid[:cap]
+    return sorted_tile, sorted_gid, overflow, total
+
+
+def _count_entries(total, num_rendered):
+    """The binning counters: AABB slots before the cull, entries kept."""
+    count("binning.aabb_slots", total)
+    count("binning.kept_entries", num_rendered)
 
 
 def bin_gaussians_nopack(proj: ProjectedGaussians, grid_x: int, grid_y: int,
@@ -286,25 +296,30 @@ def bin_gaussians_nopack(proj: ProjectedGaussians, grid_x: int, grid_y: int,
                          sort_mode: str = "2key") -> NoPackBinned:
     """Expand and sort; ranges stay unpadded (``pack_mode="none"``)."""
     num_tiles = grid_x * grid_y
-    sorted_tile, sorted_gid, overflow = _expand_and_sort(
+    sorted_tile, sorted_gid, overflow, total = _expand_and_sort(
         proj, grid_x, num_tiles, max_pairs, opacities, tile, alpha_min,
         expansion, max_sorted, sort_mode,
     )
-    dev = sorted_tile.device
-    sorted_tile = sorted_tile.contiguous()
-    tids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
-    start = torch.searchsorted(sorted_tile, tids, right=False, out_int32=True)
-    end = torch.searchsorted(sorted_tile, tids, right=True, out_int32=True)
-    pad = torch.full((CHUNK,), -1, dtype=torch.int32, device=dev)
-    return NoPackBinned(
-        entry_gid=torch.cat([sorted_gid, pad]),
-        entry_tile=torch.cat([sorted_tile,
-                              torch.full_like(pad, num_tiles)]),
-        tile_starts=start,
-        tile_counts=end - start,
-        num_rendered=_num_retained(sorted_tile, num_tiles),
-        overflow=overflow,
-    )
+    with span("render_view.sort"):
+        dev = sorted_tile.device
+        sorted_tile = sorted_tile.contiguous()
+        tids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+        start = torch.searchsorted(sorted_tile, tids, right=False,
+                                   out_int32=True)
+        end = torch.searchsorted(sorted_tile, tids, right=True,
+                                 out_int32=True)
+        pad = torch.full((CHUNK,), -1, dtype=torch.int32, device=dev)
+        binned = NoPackBinned(
+            entry_gid=torch.cat([sorted_gid, pad]),
+            entry_tile=torch.cat([sorted_tile,
+                                  torch.full_like(pad, num_tiles)]),
+            tile_starts=start,
+            tile_counts=end - start,
+            num_rendered=_num_retained(sorted_tile, num_tiles),
+            overflow=overflow,
+        )
+    _count_entries(total, binned.num_rendered)
+    return binned
 
 
 def bin_gaussians(proj: ProjectedGaussians, grid_x: int, grid_y: int,
@@ -316,23 +331,26 @@ def bin_gaussians(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     ``eff_pairs + num_tiles * CHUNK`` (eff_pairs = max_pairs, or the
     trimmed size)."""
     num_tiles = grid_x * grid_y
-    sorted_tile, sorted_gid, overflow = _expand_and_sort(
+    sorted_tile, sorted_gid, overflow, total = _expand_and_sort(
         proj, grid_x, num_tiles, max_pairs, opacities, tile, alpha_min,
         expansion, max_sorted, sort_mode,
     )
-    capacity = sorted_tile.shape[0] + num_tiles * CHUNK
-    src, in_range, slot_tile, tile_starts, tile_counts = pack_ranges(
-        sorted_tile, num_tiles, capacity
-    )
-    entry_gid = torch.where(in_range, sorted_gid[src],
-                            torch.full_like(slot_tile, -1))
-    entry_tile = torch.where(in_range, slot_tile,
-                             torch.full_like(slot_tile, -1))
-    return BinnedGaussians(
-        entry_gid=entry_gid,
-        entry_tile=entry_tile,
-        tile_starts=tile_starts,
-        tile_counts=tile_counts,
-        num_rendered=_num_retained(sorted_tile, num_tiles),
-        overflow=overflow,
-    )
+    with span("render_view.sort"):
+        capacity = sorted_tile.shape[0] + num_tiles * CHUNK
+        src, in_range, slot_tile, tile_starts, tile_counts = pack_ranges(
+            sorted_tile, num_tiles, capacity
+        )
+        entry_gid = torch.where(in_range, sorted_gid[src],
+                                torch.full_like(slot_tile, -1))
+        entry_tile = torch.where(in_range, slot_tile,
+                                 torch.full_like(slot_tile, -1))
+        binned = BinnedGaussians(
+            entry_gid=entry_gid,
+            entry_tile=entry_tile,
+            tile_starts=tile_starts,
+            tile_counts=tile_counts,
+            num_rendered=_num_retained(sorted_tile, num_tiles),
+            overflow=overflow,
+        )
+    _count_entries(total, binned.num_rendered)
+    return binned

@@ -20,6 +20,7 @@ import torch
 from ..config import TILE, RenderConfig
 from ..utils.camera import Camera, CameraView
 from ..utils.packing import stack_cols, unstack_cols
+from ..utils.profiling import close, mark, span
 from .binning import bin_gaussians, bin_gaussians_nopack
 from .projection import ProjectedGaussians, _tile_wh, project_gaussians, tile_grid
 from .rasterize import rasterize_tiles
@@ -146,24 +147,33 @@ def render_stages(means3d, scales, quats_xyzw, opacities, sh_coeffs,
                   scale_modifier: float = 1.0, ewa_mode: str = "inria",
                   active_mask=None, means2d_probe=None) -> RenderStages:
     """The stages of :func:`render_view` up to the blend: SH colours,
-    projection, binning and the payload gather (differentiable)."""
-    colors = compute_colors(means3d, sh_coeffs, cam_view.position, sh_degree)
-    proj = project_gaussians(
-        means3d, scales, quats_xyzw, cam_view, cfg, scale_modifier, ewa_mode,
-        width=width, height=height, active_mask=active_mask,
-        means2d_probe=means2d_probe,
-        opacities=_selection_opacity(opacities, cfg) if cfg.tight_radius
-        else None,
-    )
+    projection, binning and the payload gather (differentiable), each in
+    its ``render_view.<stage>`` range (``utils/profiling.py``)."""
+    with span("render_view.sh"):
+        colors = mark("render_view.sh", compute_colors(
+            means3d, sh_coeffs, cam_view.position, sh_degree))
+    with span("render_view.project"):
+        proj = mark("render_view.project", project_gaussians(
+            means3d, scales, quats_xyzw, cam_view, cfg, scale_modifier,
+            ewa_mode, width=width, height=height, active_mask=active_mask,
+            means2d_probe=means2d_probe,
+            opacities=_selection_opacity(opacities, cfg) if cfg.tight_radius
+            else None,
+        ))
+        # the opacity the tile cull reads, rounded as projection's is
+        cull_op = _selection_opacity(opacities, cfg) if cfg.tile_cull else None
     grid_x, grid_y = tile_grid(width, height, cfg.tile_wh)
-    cull_op = _selection_opacity(opacities, cfg) if cfg.tile_cull else None
     binner = {"chunk": bin_gaussians, "none": bin_gaussians_nopack}[cfg.pack_mode]
     binned = binner(proj, grid_x, grid_y, cfg.max_pairs, cull_op, cfg.tile_wh,
                     cfg.alpha_min, cfg.expansion, cfg.max_pairs_sorted,
                     cfg.interpret, cfg.sort_mode)
-    payload = build_payload(proj, colors, opacities, binned,
-                            cfg.grad_reduce_dtype, cfg.payload_dtype,
-                            cfg.grad_reduce_method)
+    with span("render_view.pack"):
+        table = mark("render_view.pack",
+                     payload_table(proj, colors, opacities))
+    with span("render_view.gather"):
+        payload = mark("render_view.gather", gather_payload(
+            table, binned.entry_gid, cfg.payload_dtype,
+            cfg.grad_reduce_dtype, cfg.grad_reduce_method))
     return RenderStages(proj, (grid_x, grid_y), binned, payload, colors,
                         cull_op)
 
@@ -176,33 +186,49 @@ def render_view(means3d, scales, quats_xyzw, opacities, sh_coeffs,
                 means2d_probe=None):
     """Render with a tensor CameraView on the device of ``means3d``.
 
-    Returns (image (3, H, W), RenderAux)."""
-    proj, (grid_x, grid_y), binned, payload, _, _ = render_stages(
-        means3d, scales, quats_xyzw, opacities, sh_coeffs, cam_view, width,
-        height, cfg, sh_degree, scale_modifier, ewa_mode, active_mask,
-        means2d_probe)
+    Returns (image (3, H, W), RenderAux). While a profiler records, the
+    call is the range ``render_view`` and each stage ``render_view.<stage>``
+    (sh, project, expand, sort, pack, gather, blend, compose), and under
+    autograd the backward of each stage runs under
+    ``render_view.<stage>.backward`` (``utils/profiling.py``)."""
+    with span("render_view"):
+        # the backward's ranges end at the inputs; not at the probe, the
+        # caller's leaf for reading dL/d means2d, whose gradient is
+        # projection's
+        (means3d, scales, quats_xyzw, opacities, sh_coeffs, cam_view,
+         bg_color) = close((means3d, scales, quats_xyzw, opacities,
+                            sh_coeffs, cam_view, bg_color))
+        proj, (grid_x, grid_y), binned, payload, _, _ = render_stages(
+            means3d, scales, quats_xyzw, opacities, sh_coeffs, cam_view,
+            width, height, cfg, sh_degree, scale_modifier, ewa_mode,
+            active_mask, means2d_probe)
 
-    if cfg.rasterizer == "pallas":
-        color, trans = rasterize_tiles(payload, binned.tile_starts,
-                                       binned.tile_counts, grid_x, width,
-                                       height, cfg)
-    else:  # "jnp": the plain version on every device
-        color, trans = rasterize_reference(payload, binned.tile_starts,
-                                           binned.tile_counts, grid_x, width,
-                                           height, cfg)
+        with span("render_view.blend"):
+            if cfg.rasterizer == "pallas":
+                color, trans = rasterize_tiles(
+                    payload, binned.tile_starts, binned.tile_counts, grid_x,
+                    width, height, cfg)
+            else:  # "jnp": the plain version on every device
+                color, trans = rasterize_reference(
+                    payload, binned.tile_starts, binned.tile_counts, grid_x,
+                    width, height, cfg)
+            color, trans = mark("render_view.blend", (color, trans))
 
-    img_c, img_t = _tiles_to_image(color, trans, grid_x, grid_y, width,
-                                   height, cfg.tile_wh)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=img_c.device)
-    image = img_c + bg[:, None, None] * img_t[None, :, :]
-    aux = RenderAux(
-        radii=proj.radius,
-        transmittance=img_t,
-        num_rendered=binned.num_rendered,
-        overflow=binned.overflow,
-        means2d=proj.means2d,
-    )
-    return image, aux
+        with span("render_view.compose"):
+            img_c, img_t = _tiles_to_image(color, trans, grid_x, grid_y,
+                                           width, height, cfg.tile_wh)
+            bg = torch.as_tensor(bg_color, dtype=torch.float32,
+                                 device=img_c.device)
+            image = img_c + bg[:, None, None] * img_t[None, :, :]
+            image, img_t = mark("render_view.compose", (image, img_t))
+        aux = RenderAux(
+            radii=proj.radius,
+            transmittance=img_t,
+            num_rendered=binned.num_rendered,
+            overflow=binned.overflow,
+            means2d=proj.means2d,
+        )
+        return image, aux
 
 
 def render_aux(means3d, scales, quats_xyzw, opacities, sh_coeffs,

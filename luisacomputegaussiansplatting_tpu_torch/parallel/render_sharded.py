@@ -31,7 +31,6 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import CHUNK, RenderConfig
 from ..ops.binning import expand_entries_auto, pack_ranges, pack_slot_inverse
@@ -41,6 +40,7 @@ from ..ops.rasterize_ref import FIELDS
 from ..ops.render import _selection_opacity, payload_table
 from ..ops.sh_eval import compute_colors
 from ..utils.camera import Camera, CameraView
+from ..utils.profiling import span
 from .exchange_vjp import (
     all_to_all,
     exchange_rows,
@@ -233,12 +233,12 @@ def _render_shard(means3d, scales, quats, opacities, sh_coeffs,
     out. Returns (band (3, band_h, w_pad) with the background, ShardAux,
     radii (p_shard,)); ``active_mask`` and ``means2d_probe`` are the
     training hooks of ``ops/projection.project_gaussians``. The stages are
-    ``record_function`` ranges named ``render_sharded.<stage>``, which a
-    profile of the frame reads."""
+    ranges named ``render_sharded.<stage>`` while a profiler records
+    (``utils/profiling.span``)."""
     tiles_per_dev = layout.tiles_per_dev
     l_loc, bcap = scfg.max_pairs_local, scfg.exchange_capacity
 
-    with record_function("render_sharded.local"):
+    with span("render_sharded.local"):
         colors = compute_colors(means3d, sh_coeffs, cam_view.position,
                                 sh_degree)
         proj = project_gaussians(
@@ -261,25 +261,25 @@ def _render_shard(means3d, scales, quats, opacities, sh_coeffs,
         sorted_gid = gid[order]
         table = payload_table(proj, colors, opacities)  # (p_shard, 9)
         pf = take_table_rows(table, sorted_gid, cfg.grad_reduce_dtype)
-    with record_function("render_sharded.bucket"):
+    with span("render_sharded.bucket"):
         # the blend order is not differentiated
         send_pf, send_meta, over = _buckets(
             pf, sorted_tile, sorted_gid, depth[order].detach(), rank=rank,
             ndev=ndev, p_shard=p_shard, tiles_per_dev=tiles_per_dev,
             bcap=bcap)
-    with record_function("render_sharded.all_to_all"):
+    with span("render_sharded.all_to_all"):
         recv_pf = exchange_rows(send_pf, group, cfg.payload_dtype,
                                 cfg.grad_reduce_dtype)
         recv_meta = all_to_all(send_meta, group)
-    with record_function("render_sharded.merge"):
+    with span("render_sharded.merge"):
         s_pf, s_ltile = _merge(recv_pf.reshape(ndev * bcap, FIELDS),
                                recv_meta.reshape(ndev * bcap, 3), rank=rank,
                                tiles_per_dev=tiles_per_dev)
-    with record_function("render_sharded.pack"):
+    with span("render_sharded.pack"):
         payload, starts, counts = _pack(
             s_pf, s_ltile, pack_mode=cfg.pack_mode,
             tiles_per_dev=tiles_per_dev, capacity=ndev * bcap)
-    with record_function("render_sharded.blend"):
+    with span("render_sharded.blend"):
         color, trans = rasterize_tiles(payload, starts, counts, layout.grid_x,
                                        width, height, cfg,
                                        tile_offset=rank * tiles_per_dev)

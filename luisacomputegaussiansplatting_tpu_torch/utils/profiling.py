@@ -22,6 +22,10 @@ loop (app/main.cpp:225,317-320) and an ImGui FPS counter. Here:
     inside the autograd engine (a backward, without the forward and the
     optimizer around it), and those of them that add into their output at
     indices: a backward of the port is held to none of those.
+  * ``span`` / ``mark`` / ``close`` / ``count`` — the program's own layer
+    ranges, forward and backward, and its entry counters (``counts`` reads
+    them). They act only while a ``torch.profiler`` records; otherwise
+    each costs one check.
 
 Everything runs on the device of the scene's tensors; the device numbers
 exist only on the card (``frame_profile`` reports host times on the CPU).
@@ -31,10 +35,132 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Layer ranges and counters, live only while a profiler records.
+#
+# Forward: ``span(name)`` is a ``record_function`` range. Backward: the
+# kernels of a layer's backward run on the autograd engine's thread, under
+# none of the forward's ranges, so ``mark(name, outputs)`` puts an identity
+# node on the layer's differentiable outputs whose backward switches the
+# engine thread's open range to ``<name>.backward``. The engine runs the
+# ready node of the highest sequence number first, so a layer's backward
+# nodes run together, after its marker and before the next marker upstream.
+# ``close(inputs)`` on an entry point's inputs ends the open range there;
+# otherwise the last range ends with the backward (a final callback of the
+# engine, after its accumulation into the leaves' ``.grad``).
+# ---------------------------------------------------------------------------
+
+_NO_SPAN = contextlib.nullcontext()
+#: the backward range open on each autograd thread
+_OPEN = threading.local()
+#: name -> per-call values (device scalars until ``counts`` reads them)
+_COUNTS: Dict[str, list] = {}
+
+
+def span(name: str):
+    """A ``record_function`` range ``name`` while a profiler records, else
+    a context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _switch(layer: Optional[str]):
+    """End this thread's open backward range; open ``layer``'s if given."""
+    rf = getattr(_OPEN, "range", None)
+    _OPEN.range = None
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    if layer is not None:
+        rf = torch.profiler.record_function(layer + ".backward")
+        rf.__enter__()
+        _OPEN.range = rf
+        torch.autograd.Variable._execution_engine.queue_callback(_end_range)
+
+
+def _end_range():
+    _switch(None)
+
+
+class _Marker(torch.autograd.Function):
+    """Identity on its tensors; its backward switches the backward range
+    and passes the gradients through as they came (None stays None)."""
+
+    @staticmethod
+    def forward(ctx, layer, *tensors):
+        ctx.layer = layer
+        ctx.set_materialize_grads(False)
+        return tensors
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _switch(ctx.layer)
+        return (None, *grads)
+
+
+def _grad_leaves(x, out: list):
+    if torch.is_tensor(x):
+        if x.requires_grad:
+            out.append(x)
+    elif isinstance(x, tuple):
+        for item in x:
+            _grad_leaves(item, out)
+
+
+def _rebuild(x, marked):
+    if torch.is_tensor(x):
+        return next(marked) if x.requires_grad else x
+    if isinstance(x, tuple):
+        items = [_rebuild(item, marked) for item in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _boundary(layer: Optional[str], x):
+    if not (torch.autograd._profiler_enabled() and torch.is_grad_enabled()):
+        return x
+    tensors: list = []
+    _grad_leaves(x, tensors)
+    if not tensors:
+        return x
+    return _rebuild(x, iter(_Marker.apply(layer, *tensors)))
+
+
+def mark(layer: str, x):
+    """``x`` (a tensor, or a tuple or NamedTuple of them, nested) with its
+    tensors that require grad passed through a marker, while a profiler
+    records and grad mode is on: the backward of the ops that made them
+    runs under the range ``<layer>.backward``. Otherwise ``x`` itself."""
+    return _boundary(layer, x)
+
+
+def close(x):
+    """Like :func:`mark` on an entry point's inputs, but the marker ends
+    the open backward range: nothing upstream of the entry is attributed
+    to its layers."""
+    return _boundary(None, x)
+
+
+def count(name: str, value: torch.Tensor):
+    """While a profiler records, keep the () tensor ``value`` as this call's
+    ``name`` count: no sync, no launch."""
+    if torch.autograd._profiler_enabled():
+        _COUNTS.setdefault(name, []).append(value)
+
+
+def counts(name: str) -> List[int]:
+    """Every ``name`` count kept so far, one int a call, oldest first (read
+    after the profiled window: this waits for the device)."""
+    values = [int(v) for v in _COUNTS.get(name, [])]
+    _COUNTS[name] = list(values)
+    return values
 
 
 def _device_of(tensors) -> torch.device:
