@@ -21,6 +21,10 @@ PyTorch version, and drives the port's render and training paths end to end:
      number of pixels a thread, each instance the same bits; the fused
      sort's fallback (2^22 tiles) and threshold (2^19 - 1 tiles) and the
      near cull (``NEAR_MEANS``) equal to the same calls on the CPU;
+     then K5, the SH colour kernels (``phase_sh``), at 6M gaussians and
+     degree 3: colours bit for bit and gradients within 1e-5 of their max
+     against the plain version, one launch each way, each way's device
+     ms beside its byte bound and the plain version's ms;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
      on the 2M bench scene from its PLY (the native loader) at 1920x1080
      with the strict defaults and the reference's L (``--max-pairs`` 20M):
@@ -285,10 +289,11 @@ def bound(nbytes, ops):
 
 
 def kernel_libs():
-    from luisacomputegaussiansplatting_tpu_torch.ops import expand, rasterize, segsum
+    from luisacomputegaussiansplatting_tpu_torch.ops import (
+        expand, rasterize, segsum, sh_eval)
 
     return [expand.KERNEL, rasterize.KERNEL, rasterize.BACKWARD_KERNEL,
-            segsum.KERNEL]
+            segsum.KERNEL, sh_eval.KERNEL]
 
 
 def reset_launches():
@@ -299,7 +304,8 @@ def reset_launches():
 def read_launches():
     """Launches per kernel since the last reset, per variant where the
     kernel has variants: ``rasterize_vpu``/``rasterize_mxu``,
-    ``rasterize_backward_vpu``/``_mxu``, ``segsum_f32``/``_bf16``."""
+    ``rasterize_backward_vpu``/``_mxu``, ``segsum_f32``/``_bf16``,
+    ``sh_forward``/``sh_backward``."""
     counts = {}
     for k in kernel_libs():
         if k.variant_launches:
@@ -812,6 +818,82 @@ def phase1(dev, blend="vpu", name="phase1"):
                          gy, w, h, cfg, ck, tk, (cp, tp), 0)
 
 
+#: K5's check: the north star's gaussian count, degree 3 over 16 rows
+SH_N = 6_000_000
+#: per gaussian at degree 3 in f32: the forward reads the mean and 48
+#: coefficients and writes RGB; the backward also reads dRGB and writes dSH
+#: and d mean
+SH_BYTES = {"forward": 12 + 192 + 12, "backward": 12 + 12 + 192 + 192 + 12}
+#: FP32 operations a gaussian (direction 12, basis ~40, sums 96; the
+#: backward about as many again)
+SH_OPS = {"forward": 150, "backward": 300}
+
+
+def phase_sh(dev, n=SH_N):
+    """K5 (``csrc/sh.cu``) at ``n`` gaussians, degree 3: colours bit for bit
+    and the three gradients within 1e-5 x their max |plain| against the
+    plain version on the card, one launch each way through
+    ``compute_colors``, each kernel's device ms beside its byte bound and
+    the plain version's ms. Returns the two kernel records."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.ops import sh_eval
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    means = (torch.rand((n, 3), generator=gen, device=dev) - 0.5) * 6.0
+    sh = torch.randn((n, 16, 3), generator=gen, device=dev) * 0.3
+    cam = torch.tensor([0.4, -4.6, 2.2], device=dev)
+    d_rgb = torch.randn((n, 3), generator=gen, device=dev)
+
+    def plain_graph():
+        leaves = [t.clone().requires_grad_(True) for t in (means, sh, cam)]
+        return leaves, sh_eval.compute_colors_reference(*leaves, 3)
+
+    sh_eval.KERNEL.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (means, sh, cam)]
+    rgb = sh_eval.compute_colors(*leaves, 3)
+    rgb.backward(d_rgb)
+    torch.cuda.synchronize()
+    check(sh_eval.KERNEL.variant_launches == {"forward": 1, "backward": 1},
+          f"phase_sh: launches {sh_eval.KERNEL.variant_launches}")
+    plain_leaves, plain_rgb = plain_graph()
+    plain_rgb.backward(d_rgb)
+    check(torch.equal(rgb, plain_rgb), "phase_sh: colours differ from plain")
+    errs = {}
+    for name, got, want in zip(("d_means", "d_sh", "d_cam"), leaves,
+                               plain_leaves):
+        scale = float(want.grad.abs().max())
+        errs[name] = float((got.grad - want.grad).abs().max())
+        check(errs[name] <= 1e-5 * scale,
+              f"phase_sh: {name} off by {errs[name]} (max |plain| {scale})")
+    del leaves, plain_leaves, rgb, plain_rgb
+
+    fwd_ms = device_ms(lambda: sh_eval.sh_forward_kernel(means, sh, cam, 3))
+    bwd_ms = device_ms(lambda: sh_eval.sh_backward_kernel(means, sh, cam, 3,
+                                                          d_rgb))
+    with torch.no_grad():
+        plain_fwd = cuda_ms(
+            lambda: sh_eval.compute_colors_reference(means, sh, cam, 3), 2)
+    plain_leaves, plain_rgb = plain_graph()
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+        plain_rgb, plain_leaves, d_rgb, retain_graph=True), 2)
+    del plain_leaves, plain_rgb
+    records = []
+    for way, ms, plain in (("forward", fwd_ms, plain_fwd),
+                           ("backward", bwd_ms, plain_bwd)):
+        b = bound(SH_BYTES[way] * n, SH_OPS[way] * n)
+        log(f"phase_sh: K5 {way} at {n} gaussians {ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / ms:.1f}% of it; plain "
+            f"{plain:.3f} ms")
+        records.append(
+            {"name": f"sh_{way}", "route": "cuda", "source": f"{PKG}/sh.cu",
+             "replaces": None, "launches": 1,
+             "max_abs_err": 0.0 if way == "forward" else errs,
+             "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+             "library_ms": None})
+    return records
+
+
 def run_render_cli(argv):
     """``render_cli.main(argv)`` in-process: (rc, stdout, stderr)."""
     from luisacomputegaussiansplatting_tpu_torch.apps import render_cli
@@ -900,7 +982,7 @@ def phase3(dev):
         torch.cuda.synchronize()
         launches = read_launches()
         check_launches("phase3 main path", launches, expand=1,
-                       rasterize_vpu=1)
+                       rasterize_vpu=1, sh_forward=1)
         check(not bool(aux.overflow), "phase3: overflow")
         check(tuple(img.shape) == (3, h, w), f"image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -1241,7 +1323,8 @@ def phase5(dev, ctx):
     # the differentiable paths, each with the launch counts over exactly it:
     # one frame launches each kernel of its path once, and only its own
     # segment-sum variant
-    one = {"expand": 1, "rasterize_vpu": 1, "rasterize_backward_vpu": 1}
+    one = {"expand": 1, "rasterize_vpu": 1, "rasterize_backward_vpu": 1,
+           "sh_forward": 1, "sh_backward": 1}
     reset_launches()
     loss, grads, aux = fwd_bwd(leaves, bg, cam, cfg)
     torch.cuda.synchronize()
@@ -1539,7 +1622,8 @@ def phase6(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     check_launches("phase6 production frame", launches, expand=1,
-                   rasterize_mxu=1, rasterize_backward_mxu=1, segsum_bf16=1)
+                   rasterize_mxu=1, rasterize_backward_mxu=1, segsum_bf16=1,
+                   sh_forward=1, sh_backward=1)
     check(not bool(aux.overflow), "phase6: overflow")
     check(bool(torch.isfinite(loss)), "phase6: non-finite loss")
     for name, g, leaf in zip(names, grads, [*leaves, bg]):
@@ -1711,7 +1795,8 @@ def phase6(dev):
         check(not bool(step_aux.overflow), "phase6 training: overflow")
     check_launches("phase6 training", read_launches(), expand=n_steps,
                    rasterize_mxu=n_steps, rasterize_backward_mxu=n_steps,
-                   segsum_bf16=n_steps)
+                   segsum_bf16=n_steps, sh_forward=n_steps,
+                   sh_backward=n_steps)
     log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
         f"ms per step median {statistics.median(step_ms):.3f} (all: "
         f"{' '.join(f'{v:.3f}' for v in step_ms)})")
@@ -2014,7 +2099,8 @@ def phase7(dev, card):
     n_views = P7_VIEWS
     extent = 3.0
     per_step = dict(expand=n_views, rasterize_mxu=n_views,
-                    rasterize_backward_mxu=n_views, segsum_bf16=n_views)
+                    rasterize_backward_mxu=n_views, segsum_bf16=n_views,
+                    sh_forward=n_views, sh_backward=n_views)
     tag = f"[{card}]"
 
     def batched(first, n):
@@ -2125,7 +2211,8 @@ def phase7(dev, card):
         check(not bool(aux.overflow), f"phase7: densify step {i} overflows")
         check_launches(f"phase7 densify step {i}", read_launches(),
                        expand=1, rasterize_mxu=1,
-                       rasterize_backward_mxu=1, segsum_bf16=1)
+                       rasterize_backward_mxu=1, segsum_bf16=1,
+                       sh_forward=1, sh_backward=1)
         check(not bool(aux.radii[~dstate.active].any()),
               f"phase7: densify step {i} drew an inactive row")
     check(all(map(math.isfinite, losses3)), "phase7: non-finite loss")
@@ -2463,7 +2550,7 @@ def phase8_train(root, work, dev, tag):
     check("[overflow]" not in err and "WARNING" not in err,
           "phase8b: overflow")
     per_step = dict(expand=4, rasterize_mxu=4, rasterize_backward_mxu=4,
-                    segsum_bf16=4)
+                    segsum_bf16=4, sh_forward=4, sh_backward=4)
     check(len(steps.launches) == 60, f"phase8b: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
     bad = [i + 1 for i, got in enumerate(steps.launches) if got != want]
@@ -3107,7 +3194,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
         check_launches("phase9b sharded frame", launches, expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
-                       segsum_f32=1)
+                       segsum_f32=1, sh_forward=1, sh_backward=1)
         check(not bool(aux.overflow), "phase9b: overflow")
         image = gather_image(band, mesh, cam.width, cam.height)
 
@@ -3168,7 +3255,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
             dev, P9_STEPS)
         check_launches("phase9b training step", first, expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
-                       segsum_f32=1)
+                       segsum_f32=1, sh_forward=1, sh_backward=1)
         check(not over, "phase9b training: overflow")
         check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
               "phase9b training: the loss did not fall")
@@ -3418,7 +3505,7 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     # two views a step: K1, K2 vpu, K3 vpu and K4 f32 twice every step;
     # the final view-0 render adds one K1 and one K2
     per_step = dict(expand=2, rasterize_vpu=2, rasterize_backward_vpu=2,
-                    segsum_f32=2)
+                    segsum_f32=2, sh_forward=2, sh_backward=2)
     check(len(steps.launches) == iters,
           f"phase10 train: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
@@ -3427,7 +3514,8 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
                    f"{per_step}")
     check_launches("phase10 train", total, expand=2 * iters + 1,
                    rasterize_vpu=2 * iters + 1,
-                   rasterize_backward_vpu=2 * iters, segsum_f32=2 * iters)
+                   rasterize_backward_vpu=2 * iters, segsum_f32=2 * iters,
+                   sh_forward=2 * iters + 1, sh_backward=2 * iters)
     check("[overflow]" not in err and "WARNING" not in err,
           "phase10 train: overflow")
     rnds = [tuple(map(int, m)) for m in DENSIFY_RE.findall(err)]
@@ -3758,6 +3846,7 @@ def main(argv):
     try:
         card = phase0()
         phase1(dev)
+        record += phase_sh(dev)
         phase2(card)
         rec, ctx = phase3(dev)
         record += rec

@@ -19,3 +19,7 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device")
