@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -62,9 +63,10 @@ from ..io.synthetic import random_scene
 from ..models.checkpoint import CheckpointManager
 from ..models.densify import (
     DensifyConfig,
+    DensifySchedule,
     densify_step,
+    density_control,
     init_densify_state,
-    reset_opacity,
 )
 from ..models.gaussians import GaussianScene, pad_params_to, params_from_numpy
 from ..models.losses import ssim
@@ -231,6 +233,19 @@ def _init_params(args, data, rng, dev):
         quats, np.full((n0,), -2.0, np.float32),
         rng.normal(0, 0.3, (n0, 1, 3)), np.zeros((n0, k - 1, 3), np.float32),
         dev)
+
+
+def density_schedule(args) -> DensifySchedule:
+    """The CLI's density control: after iteration i (1-based), a round for
+    ``--densify-from`` < i <= ``--densify-until`` (default ``--iters`` //
+    2) at multiples of ``--densify-interval``, an opacity reset at
+    multiples of ``--opacity-reset-interval`` up to the same end; no size
+    prunes."""
+    densify_until = args.densify_until or args.iters // 2
+    return DensifySchedule(
+        start=args.densify_from, stop=densify_until + 1,
+        interval=args.densify_interval,
+        reset_interval=args.opacity_reset_interval, size_prune_after=None)
 
 
 def _mesh_shape(args, world: int):
@@ -411,7 +426,9 @@ def _train(args, dev: torch.device, rank: int, world: int) -> int:
 
     views = [c.to_view(dev) for c in data.cameras]
     targets = [torch.from_numpy(t).to(dev) for t in data.targets]
-    densify_until = args.densify_until or args.iters // 2
+    schedule = density_schedule(args)
+    round_fn = (functools.partial(densify_sharded, mesh=mesh)
+                if mesh is not None else densify_step)
 
     def eval_render(view):
         params, _o, d = whole()
@@ -459,18 +476,10 @@ def _train(args, dev: torch.device, rank: int, world: int) -> int:
             overflow = aux.overflow
         ov_acc = torch.logical_or(ov_acc, overflow)
 
-        do_densify = (
-            args.densify_from <= it < densify_until
-            and (it + 1) % args.densify_interval == 0
-        )
-        if do_densify:
-            if mesh is not None:
-                _, opt, dstate, dinfo = densify_sharded(
-                    state.params, opt, dstate, gen, data.scene_extent, dcfg,
-                    mesh)
-            else:
-                _, opt, dstate, dinfo = densify_step(
-                    state.params, opt, dstate, gen, data.scene_extent, dcfg)
+        opt, dstate, dinfo = density_control(
+            it + 1, schedule, state.params, opt, dstate, gen,
+            data.scene_extent, dcfg, round_fn)
+        if dinfo is not None:
             n_act = num_active()
             say(
                 f"[{it+1}] densify: +{int(dinfo.n_cloned)} cloned "
@@ -481,12 +490,6 @@ def _train(args, dev: torch.device, rank: int, world: int) -> int:
             if bool(dinfo.overflow):
                 say(f"[{it+1}] WARNING: capacity full, children dropped",
                     file=sys.stderr)
-        if (
-            args.opacity_reset_interval
-            and (it + 1) % args.opacity_reset_interval == 0
-            and it < densify_until
-        ):
-            _, opt = reset_opacity(state.params, dstate, dcfg, opt=opt)
 
         if (it + 1) % args.log_every == 0:
             last_loss = float(loss)

@@ -27,6 +27,19 @@ The round is :func:`densify_round`, which takes the split noise as a
 tensor; :func:`densify_step` draws that noise from a ``torch.Generator``
 and calls it. :func:`densify_plan` is the round's decision (the masks and
 where each child goes), which the round computes first.
+
+When the rounds, the size prunes and the opacity resets come is a
+:class:`DensifySchedule`; :func:`density_control` does what it asks after
+a given iteration. The train CLI and the benchmark call it after every
+step.
+
+While a profiler records, a round called through :func:`density_control`
+is the range ``train_step.densify`` with ``train_step.densify.plan`` (the
+decision), ``.write`` (the rows' gathers and scatters) and ``.adam`` (the
+moment surgery), and counts ``densify.cloned``, ``densify.split``,
+``densify.pruned`` and ``densify.active`` (after the round) once a round;
+:func:`density_control` counts ``densify.active_rows`` and
+``densify.capacity`` once a call (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from ..utils.transform import rotation_from_quaternion
 from .gaussians import GaussianParams
 
@@ -64,12 +78,17 @@ class DensifyConfig:
     split_scale_shrink: float | None = None
     #: prune gaussians whose opacity falls below this.
     min_opacity: float = 0.005
-    #: prune gaussians whose max screen radius exceeded this many pixels
-    #: (0 disables, as in graphdeco before step 3000).
+    #: in a round that prunes by size, prune gaussians whose max screen
+    #: radius exceeded this many pixels (0: no screen test).
     max_screen_radius: int = 0
-    #: prune gaussians larger than this fraction of the scene extent
-    #: (0 disables; only with max_screen_radius).
+    #: in a round that prunes by size, prune gaussians larger than this
+    #: fraction of the scene extent (0: no world test).
     max_world_scale_frac: float = 0.1
+    #: whether the round prunes by size (graphdeco: after the first opacity
+    #: reset), which :func:`density_control` sets round by round from its
+    #: :class:`DensifySchedule`; None: where ``max_screen_radius`` is set,
+    #: as the JAX package decides it.
+    size_prune: bool | None = None
     #: opacity ceiling applied by reset_opacity.
     reset_opacity_to: float = 0.01
 
@@ -197,13 +216,13 @@ def densify_plan(params: GaussianParams, state: DensifyState,
         high_grad = active & (avg_grad > cfg.grad_threshold) & (state.count > 0)
         small = scale_max <= cfg.percent_dense * scene_extent
         prune = active & (opacity < cfg.min_opacity)
-        # size pruning rides on max_screen_radius, as in graphdeco (enabled
-        # there only after step 3000)
-        if cfg.max_screen_radius > 0:
+        size_prune = (cfg.max_screen_radius > 0 if cfg.size_prune is None
+                      else cfg.size_prune)
+        if size_prune and cfg.max_screen_radius > 0:
             prune |= active & (state.max_radii > cfg.max_screen_radius)
-            if cfg.max_world_scale_frac > 0:
-                prune |= active & (
-                    scale_max > cfg.max_world_scale_frac * scene_extent)
+        if size_prune and cfg.max_world_scale_frac > 0:
+            prune |= active & (
+                scale_max > cfg.max_world_scale_frac * scene_extent)
         clone = high_grad & small & ~prune
         want_split = high_grad & ~small & ~prune
 
@@ -261,8 +280,9 @@ def densify_round(params: GaussianParams, opt, state: DensifyState, noise,
       statistics reset; ``info.overflow`` True where children were dropped
       because the capacity ran out.
     """
-    plan = densify_plan(params, state, scene_extent, cfg)
-    with torch.no_grad():
+    with span("train_step.densify.plan"):
+        plan = densify_plan(params, state, scene_extent, cfg)
+    with torch.no_grad(), span("train_step.densify.write"):
         # every child's row from the parameters before any write (a split
         # parent's own slot may receive another parent's child)
         p, ci = plan.parent, plan.child
@@ -284,12 +304,6 @@ def densify_round(params: GaussianParams, opt, state: DensifyState, noise,
             getattr(params, f)[plan.dest] = r
         new_active = plan.survivors.clone()
         new_active[plan.dest] = True
-
-        # children always land in non-survivor rows, so zeroing every
-        # non-survivor row resets exactly the rewritten ones
-        if opt is not None:
-            _zero_adam_moments_where(opt, ~plan.survivors)
-
         # park the inactive rows: transparent and tiny (belt over the mask)
         parked = ~new_active
         params.opacity_logits.masked_fill_(parked, PARKED_OPACITY_LOGIT)
@@ -297,6 +311,13 @@ def densify_round(params: GaussianParams, opt, state: DensifyState, noise,
         for t in params:
             t.grad = None
 
+    # children always land in non-survivor rows, so zeroing every
+    # non-survivor row resets exactly the rewritten ones
+    if opt is not None:
+        with span("train_step.densify.adam"):
+            _zero_adam_moments_where(opt, ~plan.survivors)
+
+    with torch.no_grad():
         c = params.means.shape[0]
         dev = params.means.device
         fresh = DensifyState(
@@ -311,6 +332,10 @@ def densify_round(params: GaussianParams, opt, state: DensifyState, noise,
             n_split=torch.sum(plan.split.to(torch.int32)),
             n_pruned=torch.sum(plan.prune.to(torch.int32)),
         )
+    count("densify.cloned", info.n_cloned)
+    count("densify.split", info.n_split)
+    count("densify.pruned", info.n_pruned)
+    count("densify.active", new_active)
     return params, opt, fresh, info
 
 
@@ -368,3 +393,62 @@ def _zero_adam_moments_where(opt, row_mask, group=None):
                     else:
                         m.masked_fill_(row_mask.reshape(
                             (-1,) + (1,) * (m.dim() - 1)), 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensifySchedule:
+    """When density control acts, by the global iteration ``i``: the
+    number of steps done, graphdeco's 1-based ``iteration``, after whose
+    step it is asked. The defaults are graphdeco's (``OptimizationParams``
+    and ``train.py``'s densification block):
+
+      * a round when ``start < i < stop`` and ``i % interval == 0``;
+      * the round prunes by size (the tests that ``DensifyConfig``'s
+        ``max_screen_radius`` and ``max_world_scale_frac`` set) only when
+        ``i > size_prune_after`` (graphdeco: after the first opacity
+        reset); None never;
+      * an opacity reset when ``i < stop`` and ``i % reset_interval ==
+        0``; 0 never.
+    """
+
+    start: int = 500
+    stop: int = 15_000
+    interval: int = 100
+    reset_interval: int = 3_000
+    size_prune_after: int | None = 3_000
+
+    def wants_round(self, i: int) -> bool:
+        return (self.interval > 0 and self.start < i < self.stop
+                and i % self.interval == 0)
+
+    def wants_size_prune(self, i: int) -> bool:
+        return self.size_prune_after is not None and i > self.size_prune_after
+
+    def wants_reset(self, i: int) -> bool:
+        return (self.reset_interval > 0 and i < self.stop
+                and i % self.reset_interval == 0)
+
+
+def density_control(i: int, schedule: DensifySchedule,
+                    params: GaussianParams, opt, state: DensifyState,
+                    generator: torch.Generator, scene_extent: float,
+                    cfg: DensifyConfig = DensifyConfig(), round_fn=None):
+    """The density control ``schedule`` asks for after iteration ``i``: a
+    round (``round_fn``, by default :func:`densify_step`, called as it is,
+    with ``cfg.size_prune`` the schedule's), then an opacity reset. Reads
+    nothing on the host.
+
+    Returns (opt, DensifyState, the round's DensifyInfo or None).
+    """
+    count("densify.active_rows", state.active)
+    count("densify.capacity", state.active.shape[0])
+    info = None
+    if schedule.wants_round(i):
+        rcfg = dataclasses.replace(
+            cfg, size_prune=schedule.wants_size_prune(i))
+        with span("train_step.densify"):
+            _, opt, state, info = (round_fn or densify_step)(
+                params, opt, state, generator, scene_extent, rcfg)
+    if schedule.wants_reset(i):
+        _, opt = reset_opacity(params, state, cfg, opt=opt)
+    return opt, state, info

@@ -24,8 +24,8 @@ loop (app/main.cpp:225,317-320) and an ImGui FPS counter. Here:
     indices: a backward of the port is held to none of those.
   * ``span`` / ``mark`` / ``close`` / ``count`` — the program's own layer
     ranges, forward and backward, and its entry counters (``counts`` reads
-    them). They act only while a ``torch.profiler`` records; otherwise
-    each costs one check.
+    them). They act only while a ``torch.profiler`` records
+    (``recording``); otherwise each costs one check.
 
 Everything runs on the device of the scene's tensors; the device numbers
 exist only on the card (``frame_profile`` reports host times on the CPU).
@@ -64,10 +64,15 @@ _OPEN = threading.local()
 _COUNTS: Dict[str, list] = {}
 
 
+def recording() -> bool:
+    """Whether a profiler records: the ranges and counters are live."""
+    return torch.autograd._profiler_enabled()
+
+
 def span(name: str):
     """A ``record_function`` range ``name`` while a profiler records, else
     a context that does nothing."""
-    if torch.autograd._profiler_enabled():
+    if recording():
         return torch.profiler.record_function(name)
     return _NO_SPAN
 
@@ -124,7 +129,7 @@ def _rebuild(x, marked):
 
 
 def _boundary(layer: Optional[str], x):
-    if not (torch.autograd._profiler_enabled() and torch.is_grad_enabled()):
+    if not (recording() and torch.is_grad_enabled()):
         return x
     tensors: list = []
     _grad_leaves(x, tensors)
@@ -148,17 +153,20 @@ def close(x):
     return _boundary(None, x)
 
 
-def count(name: str, value: torch.Tensor):
-    """While a profiler records, keep the () tensor ``value`` as this call's
-    ``name`` count: no sync, no launch."""
-    if torch.autograd._profiler_enabled():
+def count(name: str, value):
+    """While a profiler records, keep ``value`` as this call's ``name``
+    count: an int, or a tensor whose sum is the count (a () tensor, or a
+    mask that counts its True entries, summed when read): no sync, no
+    launch."""
+    if recording():
         _COUNTS.setdefault(name, []).append(value)
 
 
 def counts(name: str) -> List[int]:
     """Every ``name`` count kept so far, one int a call, oldest first (read
     after the profiled window: this waits for the device)."""
-    values = [int(v) for v in _COUNTS.get(name, [])]
+    values = [int(v.sum()) if torch.is_tensor(v) else int(v)
+              for v in _COUNTS.get(name, [])]
     _COUNTS[name] = list(values)
     return values
 

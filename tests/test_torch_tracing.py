@@ -17,6 +17,7 @@ import collections
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from luisacomputegaussiansplatting_tpu_torch.config import RenderConfig
 from luisacomputegaussiansplatting_tpu_torch.models import densify as pd
@@ -275,3 +276,124 @@ def test_binning_counts_one_value_per_call_under_a_profiler(pack):
     assert kept == [int(b.num_rendered) for b in binned]
     assert slots == [int(saturated_ends(p.tiles_touched)[1]) for p in projs]
     assert all(0 < k <= s for k, s in zip(kept, slots))
+
+
+# --------------------------------------------------------------------------
+# density control: the round's ranges and the densify counters
+# --------------------------------------------------------------------------
+
+CAP = 400
+ROUND_RANGES = ("train_step.densify", "train_step.densify.plan",
+                "train_step.densify.write", "train_step.densify.adam")
+DENSIFY_COUNTS = ("densify.cloned", "densify.split", "densify.pruned",
+                  "densify.active")
+STEP_COUNTS = ("densify.active_rows", "densify.capacity")
+
+
+def control_state():
+    """(params, Adam, DensifyState) at capacity ``CAP`` with N active rows
+    after one densifying step, statistics large enough to clone and split."""
+    from luisacomputegaussiansplatting_tpu_torch.models.gaussians import pad_params_to
+
+    state, opt = pt.init_train_state(pad_params_to(start_params(), CAP))
+    dstate = pd.init_densify_state(N, CAP, device="cpu")
+    step = pt.make_densify_train_step(opt, W, H,
+                                      cfg=RenderConfig(**CONFIGS["strict"]))
+    state, dstate, _, _ = step(state, dstate, VIEWS[0], targets(1)[0])
+    return state.params, opt, dstate
+
+
+def run_control(iters, params, opt, dstate):
+    sched = pd.DensifySchedule(start=0, stop=100, interval=2,
+                               reset_interval=0, size_prune_after=0)
+    gen = torch.Generator().manual_seed(4)
+    cfg = pd.DensifyConfig(max_screen_radius=20)
+    rounds = []
+    for i in iters:
+        opt, dstate, info = pd.density_control(i, sched, params, opt, dstate,
+                                               gen, 3.0, cfg)
+        if info is not None:
+            rounds.append((info, dstate.active))  # summed by the caller
+    return rounds, dstate
+
+
+def test_a_round_opens_its_ranges_and_counts_once_under_a_profiler():
+    params, opt, dstate = control_state()
+    before = {n: len(profiling.counts(n))
+              for n in DENSIFY_COUNTS + STEP_COUNTS}
+    actives = [int(dstate.num_active)]
+    (rounds, _), prof = profiled(lambda: run_control(
+        range(1, 5), params, opt, dstate))
+    names = collections.Counter(e.name for e in prof.events())
+    assert all(names[r] == 2 for r in ROUND_RANGES), names
+    # every op of a round lies under the round's range
+    for e in prof.events():
+        if e.name.startswith("aten::") and any(
+                r.startswith("train_step.densify.")
+                for r in _program_ranges(e)):
+            assert "train_step.densify" in _program_ranges(e)
+    got = {n: profiling.counts(n)[before[n]:]
+           for n in DENSIFY_COUNTS + STEP_COUNTS}
+    assert got["densify.cloned"] == [int(i.n_cloned) for i, _ in rounds]
+    assert got["densify.split"] == [int(i.n_split) for i, _ in rounds]
+    assert got["densify.pruned"] == [int(i.n_pruned) for i, _ in rounds]
+    assert got["densify.active"] == [int(a.sum()) for _, a in rounds]
+    assert sum(got["densify.cloned"]) > 0 and sum(got["densify.split"]) > 0
+    # one value a step: the rows active during it, and the capacity
+    assert got["densify.capacity"] == [CAP] * 4
+    actives += [int(a.sum()) for _, a in rounds]
+    assert got["densify.active_rows"] == [actives[0], actives[0],
+                                          actives[1], actives[1]]
+
+
+class _Ops(TorchDispatchMode):
+    """Counts every aten op dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_density_control_without_a_profiler_adds_no_op_range_or_count(
+        monkeypatch):
+    """Without a profiler, density control runs the ops of the bare round
+    and nothing else: no range, no count, no op of a counter."""
+    Ops = _Ops
+
+    made = collections.Counter()
+    record = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function", lambda *a: (
+        made.update(["range"]), record(*a))[1])
+    counted = {k: len(v) for k, v in profiling._COUNTS.items()}
+
+    params, opt, dstate = control_state()
+    with Ops() as mode:
+        rounds, _ = run_control([2], params, opt, dstate)
+    assert len(rounds) == 1
+    params, opt, dstate = control_state()
+    with Ops() as bare:
+        pd.densify_step(params, opt, dstate, torch.Generator().manual_seed(4),
+                        3.0, pd.DensifyConfig(max_screen_radius=20))
+    assert mode.ops == bare.ops
+    assert made == {}
+    assert {k: len(v) for k, v in profiling._COUNTS.items()} == counted
+
+
+def test_density_control_under_a_profiler_runs_the_same_ops():
+    """The counters keep tensors the round has already made and sum them
+    only when read: traced rounds dispatch the aten ops of untraced ones,
+    no more."""
+    params, opt, dstate = control_state()
+    with _Ops() as plain:
+        run_control(range(1, 5), params, opt, dstate)
+    params, opt, dstate = control_state()
+    with _Ops() as traced:
+        profiled(lambda: run_control(range(1, 5), params, opt, dstate))
+    # the ranges themselves are ops of the profiler's, which launch nothing
+    aten = {k: v for k, v in traced.ops.items()
+            if not k.startswith("profiler.")}
+    assert aten == plain.ops
