@@ -24,7 +24,11 @@ PyTorch version, and drives the port's render and training paths end to end:
      then K5, the SH colour kernels (``phase_sh``), at 6M gaussians and
      degree 3: colours bit for bit and gradients within 1e-5 of their max
      against the plain version, one launch each way, each way's device
-     ms beside its byte bound and the plain version's ms;
+     ms beside its byte bound and the plain version's ms; then K6, the
+     projection kernels (``phase_projection``), at 6M gaussians on a
+     bicycle-cell camera: the eight fields bit for bit (training and render
+     calls, the tight radius) and gradients within 1e-5 of their max, one
+     launch each way, each way's device ms beside its byte bound;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
      on the 2M bench scene from its PLY (the native loader) at 1920x1080
      with the strict defaults and the reference's L (``--max-pairs`` 20M):
@@ -290,10 +294,10 @@ def bound(nbytes, ops):
 
 def kernel_libs():
     from luisacomputegaussiansplatting_tpu_torch.ops import (
-        expand, rasterize, segsum, sh_eval)
+        expand, projection, rasterize, segsum, sh_eval)
 
     return [expand.KERNEL, rasterize.KERNEL, rasterize.BACKWARD_KERNEL,
-            segsum.KERNEL, sh_eval.KERNEL]
+            segsum.KERNEL, sh_eval.KERNEL, projection.KERNEL]
 
 
 def reset_launches():
@@ -305,7 +309,7 @@ def read_launches():
     """Launches per kernel since the last reset, per variant where the
     kernel has variants: ``rasterize_vpu``/``rasterize_mxu``,
     ``rasterize_backward_vpu``/``_mxu``, ``segsum_f32``/``_bf16``,
-    ``sh_forward``/``sh_backward``."""
+    ``sh_forward``/``sh_backward``, ``projection_forward``/``_backward``."""
     counts = {}
     for k in kernel_libs():
         if k.variant_launches:
@@ -894,6 +898,175 @@ def phase_sh(dev, n=SH_N):
     return records
 
 
+#: K6's check: the north star's gaussian count, the bicycle cells' camera
+PROJ_N = 6_000_000
+#: per gaussian: the forward reads the mean, scales and quaternion (40 B),
+#: the active mask (1) and the probe (8) and writes the centre (8), depth (4),
+#: conic (12), radius (4), both rect corners (16), tiles_touched (4) and valid
+#: (1); the backward reads the mean, scales and quaternion and the centre and
+#: conic cotangents (20) and writes the three gradients (40): the probe's
+#: gradient is the centres' cotangent itself, not a copy
+PROJ_BYTES = {"forward": 40 + 1 + 8 + 49, "backward": 40 + 20 + 40}
+#: FP32 operations a gaussian (view 18, NDC 12, covariance ~90, EWA ~50,
+#: conic and radius ~25, rect ~15; the backward ~400), divisions and square
+#: roots counted once
+PROJ_OPS = {"forward": 210, "backward": 400}
+
+
+def phase_projection(dev, n=PROJ_N):
+    """K6 (``csrc/projection.cu``) at ``n`` gaussians on a bicycle-cell
+    camera: the eight fields bit for bit against the plain version on the
+    card (the training call with the mask and the probe, the render call,
+    the tight radius), the four gradients within 1e-5 x their max |plain|
+    from strided cotangents, one launch each way through
+    ``project_gaussians``, a pose's gradient through ``look_at_view`` on the
+    same launches (position, target and tangent within 1e-5 x their max of
+    the plain version in float64, or no farther from it than twice
+    autograd's float32 chain), each kernel's device ms beside its byte bound
+    and the plain version's ms. Returns the two kernel records."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera
+    from luisacomputegaussiansplatting_tpu_torch.io.synthetic import random_scene_device
+    from luisacomputegaussiansplatting_tpu_torch.ops import projection
+    from luisacomputegaussiansplatting_tpu_torch.utils.camera import look_at_view
+
+    scene = random_scene_device(n, seed=19, scale_range=(0.004, 0.02),
+                                sh_degree=0, device=dev)
+    means, scales, quats, opac = (scene.means, scene.scales, scene.quats,
+                                  scene.opacities)
+    cam = look_at_camera((3.5, -3.0, 2.2), (0, 0, 0), (0, 0, 1), fov=65.0,
+                         width=1237, height=822)
+    view = cam.to_view(dev)
+    w, h = cam.width, cam.height
+    cfg = RenderConfig(tile=32, tile_cull=True)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mask = torch.rand((n,), generator=gen, device=dev) < 0.9
+    probe = torch.zeros((n, 2), device=dev)
+    # the payload's backward hands the cotangents on as (N, K) views
+    d_m2d = torch.randn((2, n), generator=gen, device=dev).t()
+    d_conic = torch.randn((3, n), generator=gen, device=dev).t()
+
+    def call(fn, leaves, cfg=cfg, train=True):
+        m, s, q, pr = leaves
+        return fn(m, s, q, view, cfg, width=w, height=h,
+                  active_mask=mask if train else None,
+                  means2d_probe=pr if train else None, opacities=opac)
+
+    def fresh():
+        return [t.clone().requires_grad_(True)
+                for t in (means, scales, quats, probe)]
+
+    with torch.no_grad():
+        for tag, c, train in (("training call", cfg, True),
+                              ("render call", cfg, False),
+                              ("tight radius", RenderConfig(
+                                  tile=32, tight_radius=True), True)):
+            got = call(projection.project_gaussians, fresh(), c, train)
+            want = call(projection.project_gaussians_reference, fresh(), c,
+                        train)
+            for f in want._fields:
+                a, b = getattr(got, f), getattr(want, f)
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                check(torch.equal(a, b),
+                      f"phase_projection: {tag}: {f} differs from plain")
+            log(f"phase_projection: {tag} bit for bit, "
+                f"{int(got.valid.sum())} valid of {n}, "
+                f"{int(got.tiles_touched.sum())} tiles")
+            del got, want
+
+    projection.KERNEL.reset_launches()
+    leaves = fresh()
+    got = call(projection.project_gaussians, leaves)
+    torch.autograd.backward([got.means2d, got.conic], [d_m2d, d_conic])
+    torch.cuda.synchronize()
+    check(projection.KERNEL.variant_launches
+          == {"forward": 1, "backward": 1},
+          f"phase_projection: launches {projection.KERNEL.variant_launches}")
+    plain_leaves = fresh()
+    want = call(projection.project_gaussians_reference, plain_leaves)
+    torch.autograd.backward([want.means2d, want.conic], [d_m2d, d_conic])
+    errs = {}
+    for name, a, b in zip(("d_means", "d_scales", "d_quats", "d_probe"),
+                          leaves, plain_leaves):
+        scale = float(b.grad.abs().max())
+        errs[name] = float((a.grad - b.grad).abs().max())
+        check(errs[name] <= 1e-5 * scale,
+              f"phase_projection: {name} off by {errs[name]} (max |plain| "
+              f"{scale})")
+    log(f"phase_projection: gradients within 1e-5 of their max: {errs}")
+    del leaves, plain_leaves, got, want
+
+    def pose_grads(fn, dtype=torch.float32):
+        """d position, d target, d tan_fovy of a look-at pose whose view
+        projects the scene with the training call's cotangents."""
+        pose = [torch.tensor(v, dtype=dtype, device=dev).requires_grad_(True)
+                for v in ((3.5, -3.0, 2.2), (0.0, 0.0, 0.0),
+                          cam.tan_fovy)]
+        up = torch.tensor((0.0, 0.0, 1.0), dtype=dtype, device=dev)
+        pv = look_at_view(pose[0], pose[1], up, pose[2], w / h)
+        c = [t.to(dtype) for t in (means, scales, quats, opac)]
+        out = fn(*c[:3], pv, cfg, width=w, height=h, active_mask=mask,
+                 opacities=c[3])
+        torch.autograd.backward([out.means2d, out.conic],
+                                [d_m2d.to(dtype), d_conic.to(dtype)])
+        return [t.grad.double() for t in pose]
+
+    projection.KERNEL.reset_launches()
+    got = pose_grads(projection.project_gaussians)
+    torch.cuda.synchronize()
+    check(projection.KERNEL.variant_launches
+          == {"forward": 1, "backward": 1},
+          f"phase_projection: pose launches "
+          f"{projection.KERNEL.variant_launches}")
+    want = pose_grads(projection.project_gaussians_reference)
+    exact = pose_grads(projection.project_gaussians_reference, torch.float64)
+    pose_errs = {}
+    for name, g, a, x in zip(("position", "target", "tan_fovy"), got, want,
+                             exact):
+        scale = float(x.abs().max())
+        err_k, err_a = (float((t - x).abs().max()) for t in (g, a))
+        pose_errs[name] = (err_k, err_a, scale)
+        check(err_k <= 1e-5 * scale or err_k <= 2.0 * err_a + scale * 2 ** -23,
+              f"phase_projection: pose {name}: K6 off float64 by {err_k}, "
+              f"autograd by {err_a}")
+    log(f"phase_projection: pose gradients on K6 (K6, autograd off the "
+        f"float64 plain version; its max): {pose_errs}")
+    del got, want, exact
+
+    params = projection._params(n, cfg, w, h, 1.0, "inria")
+    cam_t = (view.view, view.tan_fovx, view.tan_fovy)
+    fwd_ms = device_ms(lambda: projection.projection_forward_kernel(
+        means, scales, quats, *cam_t, params, probe, None, mask))
+    bwd_ms = device_ms(lambda: projection.projection_backward_kernel(
+        means, scales, quats, *cam_t, params, d_m2d, d_conic))
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: call(
+            projection.project_gaussians_reference, fresh()), 2)
+    plain_leaves = fresh()
+    want = call(projection.project_gaussians_reference, plain_leaves)
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+        [want.means2d, want.conic], plain_leaves, [d_m2d, d_conic],
+        retain_graph=True), 2)
+    del plain_leaves, want
+    records = []
+    for way, ms, plain in (("forward", fwd_ms, plain_fwd),
+                           ("backward", bwd_ms, plain_bwd)):
+        b = bound(PROJ_BYTES[way] * n, PROJ_OPS[way] * n)
+        log(f"phase_projection: K6 {way} at {n} gaussians {ms:.4f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / ms:.1f}% of it; plain "
+            f"{plain:.3f} ms")
+        records.append(
+            {"name": f"projection_{way}", "route": "cuda",
+             "source": f"{PKG}/projection.cu", "replaces": None,
+             "launches": 1,
+             "max_abs_err": 0.0 if way == "forward" else errs,
+             "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+             "library_ms": None})
+    return records
+
+
 def run_render_cli(argv):
     """``render_cli.main(argv)`` in-process: (rc, stdout, stderr)."""
     from luisacomputegaussiansplatting_tpu_torch.apps import render_cli
@@ -982,7 +1155,8 @@ def phase3(dev):
         torch.cuda.synchronize()
         launches = read_launches()
         check_launches("phase3 main path", launches, expand=1,
-                       rasterize_vpu=1, sh_forward=1)
+                       rasterize_vpu=1, sh_forward=1,
+                       projection_forward=1)
         check(not bool(aux.overflow), "phase3: overflow")
         check(tuple(img.shape) == (3, h, w), f"image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -1324,7 +1498,8 @@ def phase5(dev, ctx):
     # one frame launches each kernel of its path once, and only its own
     # segment-sum variant
     one = {"expand": 1, "rasterize_vpu": 1, "rasterize_backward_vpu": 1,
-           "sh_forward": 1, "sh_backward": 1}
+           "sh_forward": 1, "sh_backward": 1, "projection_forward": 1,
+           "projection_backward": 1}
     reset_launches()
     loss, grads, aux = fwd_bwd(leaves, bg, cam, cfg)
     torch.cuda.synchronize()
@@ -1623,7 +1798,8 @@ def phase6(dev):
     launches = read_launches()
     check_launches("phase6 production frame", launches, expand=1,
                    rasterize_mxu=1, rasterize_backward_mxu=1, segsum_bf16=1,
-                   sh_forward=1, sh_backward=1)
+                   sh_forward=1, sh_backward=1, projection_forward=1,
+                   projection_backward=1)
     check(not bool(aux.overflow), "phase6: overflow")
     check(bool(torch.isfinite(loss)), "phase6: non-finite loss")
     for name, g, leaf in zip(names, grads, [*leaves, bg]):
@@ -1796,7 +1972,8 @@ def phase6(dev):
     check_launches("phase6 training", read_launches(), expand=n_steps,
                    rasterize_mxu=n_steps, rasterize_backward_mxu=n_steps,
                    segsum_bf16=n_steps, sh_forward=n_steps,
-                   sh_backward=n_steps)
+                   sh_backward=n_steps, projection_forward=n_steps,
+                   projection_backward=n_steps)
     log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
         f"ms per step median {statistics.median(step_ms):.3f} (all: "
         f"{' '.join(f'{v:.3f}' for v in step_ms)})")
@@ -2100,7 +2277,8 @@ def phase7(dev, card):
     extent = 3.0
     per_step = dict(expand=n_views, rasterize_mxu=n_views,
                     rasterize_backward_mxu=n_views, segsum_bf16=n_views,
-                    sh_forward=n_views, sh_backward=n_views)
+                    sh_forward=n_views, sh_backward=n_views,
+                    projection_forward=n_views, projection_backward=n_views)
     tag = f"[{card}]"
 
     def batched(first, n):
@@ -2212,7 +2390,8 @@ def phase7(dev, card):
         check_launches(f"phase7 densify step {i}", read_launches(),
                        expand=1, rasterize_mxu=1,
                        rasterize_backward_mxu=1, segsum_bf16=1,
-                       sh_forward=1, sh_backward=1)
+                       sh_forward=1, sh_backward=1, projection_forward=1,
+                       projection_backward=1)
         check(not bool(aux.radii[~dstate.active].any()),
               f"phase7: densify step {i} drew an inactive row")
     check(all(map(math.isfinite, losses3)), "phase7: non-finite loss")
@@ -2550,7 +2729,8 @@ def phase8_train(root, work, dev, tag):
     check("[overflow]" not in err and "WARNING" not in err,
           "phase8b: overflow")
     per_step = dict(expand=4, rasterize_mxu=4, rasterize_backward_mxu=4,
-                    segsum_bf16=4, sh_forward=4, sh_backward=4)
+                    segsum_bf16=4, sh_forward=4, sh_backward=4,
+                    projection_forward=4, projection_backward=4)
     check(len(steps.launches) == 60, f"phase8b: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
     bad = [i + 1 for i, got in enumerate(steps.launches) if got != want]
@@ -2631,7 +2811,7 @@ def phase8_defaults(root, data, work, dev, tag):
     grows = re.findall(r"\[overflow\] raising max_pairs to (\d+)", err)
     check(len(grows) >= 1, "phase8d: max_pairs never grew")
     for k in ("expand", "rasterize_vpu", "rasterize_backward_vpu",
-              "segsum_f32"):
+              "segsum_f32", "projection_forward", "projection_backward"):
         check(got[k] > 0, f"phase8d: {k} never launched")
     for k in ("rasterize_mxu", "rasterize_backward_mxu", "segsum_bf16"):
         check(got[k] == 0, f"phase8d: {k} launched")
@@ -2748,7 +2928,8 @@ def phase8_viewer(scene, dev, tag):
             thread.join(timeout=30)
         check(len(srv.parts) == len(poses), "phase8e: requests not timed")
         check(launches["expand"] == len(poses)
-              and launches["rasterize_vpu"] == len(poses),
+              and launches["rasterize_vpu"] == len(poses)
+              and launches["projection_forward"] == len(poses),
               f"phase8e: launches {launches}")
         render, d2h, jpeg = (list(x) for x in zip(*srv.parts))
         rest = [t - r - c - j for t, r, c, j in zip(total_ms, render, d2h,
@@ -3194,7 +3375,8 @@ def phase9b(scene, cam, cfg, dev, tmp):
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
         check_launches("phase9b sharded frame", launches, expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
-                       segsum_f32=1, sh_forward=1, sh_backward=1)
+                       segsum_f32=1, sh_forward=1, sh_backward=1,
+                       projection_forward=1, projection_backward=1)
         check(not bool(aux.overflow), "phase9b: overflow")
         image = gather_image(band, mesh, cam.width, cam.height)
 
@@ -3255,7 +3437,8 @@ def phase9b(scene, cam, cfg, dev, tmp):
             dev, P9_STEPS)
         check_launches("phase9b training step", first, expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
-                       segsum_f32=1, sh_forward=1, sh_backward=1)
+                       segsum_f32=1, sh_forward=1, sh_backward=1,
+                       projection_forward=1, projection_backward=1)
         check(not over, "phase9b training: overflow")
         check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
               "phase9b training: the loss did not fall")
@@ -3505,7 +3688,8 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     # two views a step: K1, K2 vpu, K3 vpu and K4 f32 twice every step;
     # the final view-0 render adds one K1 and one K2
     per_step = dict(expand=2, rasterize_vpu=2, rasterize_backward_vpu=2,
-                    segsum_f32=2, sh_forward=2, sh_backward=2)
+                    segsum_f32=2, sh_forward=2, sh_backward=2,
+                    projection_forward=2, projection_backward=2)
     check(len(steps.launches) == iters,
           f"phase10 train: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
@@ -3515,7 +3699,9 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     check_launches("phase10 train", total, expand=2 * iters + 1,
                    rasterize_vpu=2 * iters + 1,
                    rasterize_backward_vpu=2 * iters, segsum_f32=2 * iters,
-                   sh_forward=2 * iters + 1, sh_backward=2 * iters)
+                   sh_forward=2 * iters + 1, sh_backward=2 * iters,
+                   projection_forward=2 * iters + 1,
+                   projection_backward=2 * iters)
     check("[overflow]" not in err and "WARNING" not in err,
           "phase10 train: overflow")
     rnds = [tuple(map(int, m)) for m in DENSIFY_RE.findall(err)]
@@ -3847,6 +4033,7 @@ def main(argv):
         card = phase0()
         phase1(dev)
         record += phase_sh(dev)
+        record += phase_projection(dev)
         phase2(card)
         rec, ctx = phase3(dev)
         record += rec

@@ -2,13 +2,13 @@
 
 The reference's per-frame path (app/main.cpp:266-308: SHProcessor,
 GSProjector, GSTileSplatter) as plain torch stages around the CUDA kernels:
-SH colours -> projection and tile rects -> expansion (kernel) -> sort and
-ranges -> payload gather -> forward blend (kernel) -> image and background.
-Under autograd the backward runs the backward blend (kernel), the
-segment-sum of the payload gradients per gaussian (kernel), then torch's own
-VJPs of projection and SH. Capacities are static, as in the JAX package, and
-overflow is reported rather than resized, so both packages produce the same
-entry streams.
+SH colours (kernel) -> projection and tile rects (kernel) -> expansion
+(kernel) -> sort and ranges -> payload gather -> forward blend (kernel) ->
+image and background. Under autograd the backward runs the backward blend
+(kernel), the segment-sum of the payload gradients per gaussian (kernel),
+then the projection's and the SH colours' backward kernels (K6, K5).
+Capacities are static, as in the JAX package, and overflow is reported
+rather than resized, so both packages produce the same entry streams.
 """
 
 from __future__ import annotations
@@ -74,7 +74,9 @@ class _GatherPayload(torch.autograd.Function):
                  rows[:, 5:].to(torch.bfloat16).to(torch.float32)],
                 dim=1,
             )
-        rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+        # a scalar zero: a zeros_like here was a third payload-sized buffer
+        # at the frame's peak of device memory
+        rows = torch.where(valid[:, None], rows, 0.0)
         ctx.save_for_backward(entry_gid)
         ctx.n_rows = table.shape[0]
         ctx.reduce = (reduce_dtype, reduce_method)
