@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""The card's gate for the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare ROOT [--grads FILE]
 
 Builds the hand-written kernels from ``luisacomputegaussiansplatting_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each against its plain
-PyTorch version, and drives the port's render and training paths end to end:
+PyTorch version, and drives the port's render and training paths end to end,
+checking results, digests and kernel launch counts. Speed is the benchmark's
+(``gsbench/``, the cells of ``BENCHMARK.json``); this script times only each
+kernel alone, once per frame, beside its plain version and its bound in the
+benchmark's yardstick (``gsbench/work.py``):
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions and the
      kernel build time, with ptxas' registers and spills of every kernel;
@@ -27,17 +31,20 @@ PyTorch version, and drives the port's render and training paths end to end:
      ms beside its byte bound and the plain version's ms; then K6, the
      projection kernels (``phase_projection``), at 6M gaussians on a
      bicycle-cell camera: the eight fields bit for bit (training and render
-     calls, the tight radius) and gradients within 1e-5 of their max, one
+     calls, the tight radius), gradients within 1e-5 of their max, a
+     look-at pose's gradient against the plain version in float64, one
      launch each way, each way's device ms beside its byte bound;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
      on the 2M bench scene from its PLY (the native loader) at 1920x1080
      with the strict defaults and the reference's L (``--max-pairs`` 20M):
-     no overflow, ``rep_ms`` logged;
-  3. the forward slice: a 2M-gaussian random scene at 1920x1080 through
-     ``render_aux`` with the strict-parity config, re-run stage by stage with
-     the plain versions, and timed (the forward blend at each number of
-     pixels a thread; the expansion's prefix sums and kernel apart); the
-     digest of the forward blend's colour and T;
+     no overflow, the CLI's ``rep_ms`` line printed;
+  3. the strict frame (tile 16, vpu, f32, 2-key sort, no cull: the lego
+     cells' kernel modes): a 2M-gaussian random scene at 1920x1080 through
+     ``render_aux`` with the strict-parity config, its launches, re-run
+     stage by stage with the plain versions; the forward blend at each
+     number of pixels a thread, bit-identical, timed on the device; the
+     expansion's prefix sums and kernel timed apart; K2's colour and T
+     digest (``K2_DIGESTS``);
   4. backward kernels against plain versions at phase 1's scale and
      settings: the backward blend against ``rasterize_backward_reference``
      on a random residual, the segment-sum in f32 and bf16 against
@@ -48,28 +55,27 @@ PyTorch version, and drives the port's render and training paths end to end:
      twice must give the same bits;
   5. the differentiable slice at phase 3's size: loss = image sum, backward
      to all five gaussian groups and the background, in f32 and with the
-     bf16 gradient reduction; stage by stage against the plain versions;
-     the forward and the backward blend at each number of pixels a thread
-     held and timed; the forward+backward frame timed over chained reps;
-     then five training steps with ``make_train_step``;
-  6. the production slice: first phases 1 and 4 again with
-     ``blend_quad="mxu"``; then ``bench.py``'s headline configuration (tile 32,
-     no-pack, cull, trim, fused sort, bf16 payload and gradient reduction,
-     ``blend_quad="mxu"``) through ``bench_cuda.run_config``'s scene and
-     frame at 2M gaussians and 1920x1080: one forward + backward frame with
-     its launch counts (no vpu blend), three ring views indexed from a
-     stacked CameraView bit-identical to single frames in image,
-     ``num_rendered`` and gradients, the mxu blend kernels against their
-     plain versions on the frame's payload and residual (each at every
-     number of pixels a thread; the forward's digest), the five groups'
-     gradients against the all-plain backward, the mxu image against the
-     vpu image, the expansion and the segment-sum at the frame's shapes
-     (the longest segment logged), the timed frames and five training
-     steps; the north star (6M gaussians) through ``run_config``; and one
-     production frame under ``torch.profiler``
-     (``utils/profiling.frame_profile``), with the device ms of add_,
-     fill_ and copy_ and of what select_backward ran, which must be none:
-     the columns cross through ``utils/packing.py``;
+     bf16 gradient reduction, with their launches; stage by stage against
+     the plain versions; the forward and the backward blend at each number
+     of pixels a thread held, the backward blend's instances and the f32
+     segment-sum timed on the device; then five training steps with
+     ``make_train_step``: the loss falls, exact launch counts;
+  6. the production frame (tile 32, no-pack, cull, trim, fused sort, bf16
+     payload and gradient reduction, ``blend_quad="mxu"``: the bicycle
+     cells' kernel modes): first phases 1 and 4 again in mxu; then
+     ``bench_cuda.scene_camera_config``'s 2M headline scene at 1920x1080:
+     one forward + backward frame with its launch counts (no vpu blend),
+     three ring views indexed from a stacked CameraView bit-identical to
+     single frames in image, ``num_rendered`` and gradients, the mxu blend
+     kernels against their plain versions on the frame's payload and
+     residual (each at every number of pixels a thread, timed on the
+     device; the forward's digest), the five groups' gradients against the
+     all-plain backward, the mxu image against the vpu image, the expansion
+     and the bf16 segment-sum at the frame's shapes timed on the device
+     (the longest segment logged), five training steps; and one production
+     frame under ``torch.profiler`` (``utils/profiling.frame_profile``),
+     which must record device time and no ``select_backward``: the columns
+     cross through ``utils/packing.py``;
   7. densifying, batched training at the production configuration: capacity
      2M from 1M actives (the bench scene's first half, means moved by
      N(0, 0.01), opacity logits lowered by 1) towards the full scene's
@@ -82,8 +88,8 @@ PyTorch version, and drives the port's render and training paths end to end:
      (``check_round``), as does a second round on copies of the state with
      a ``percent_dense`` at which it splits; then the four kernels against
      their plain versions on one ring view's stages with the active mask
-     (``check_masked_view``); one profiled batched step, with phase 6's op
-     sums and no select_backward; inactive rows stay parked and culled;
+     (``check_masked_view``); one profiled batched step with no
+     select_backward; inactive rows stay parked and culled;
   8. the dataset loaders, the train CLI and the viewer: (a) a COLMAP
      binary model in mip-NeRF-360 layout (``sparse/0/*.bin``, ``images/``)
      of 8 renders of the 2M bench scene at 1920x1080 on the bench camera's
@@ -99,9 +105,8 @@ PyTorch version, and drives the port's render and training paths end to end:
      (one view, vpu, tile 16, f32) with ``max_pairs`` a third of the first
      view's entries: it grows; (e) the viewer on the 2M scene at its
      defaults over loopback at 1280x720 and 1920x1080, 20 frames on a ring
-     each, every request's time in four parts (render by CUDA events;
-     copy, flip and cast; JPEG; HTTP), each frame >= 35 dB against
-     ``render_view``, a malformed query answered 400;
+     each, one launch of each forward kernel a request, each frame >= 35 dB
+     against ``render_view``, a malformed query answered 400;
   9. the sharded path (``parallel/``) on ``bench.py``'s production
      configuration at 2M gaussians and 1920x1080 with the sort "2key" and no
      post-sort trim (the settings the sharded path rejects): (a) the
@@ -111,17 +116,16 @@ PyTorch version, and drives the port's render and training paths end to end:
      to the whole frame's blend; (b) world size 1 over NCCL in this
      process: ``render_sharded`` forward and backward against
      ``render_aux`` (image within 2e-5, gradients within GRAD_TOL), exactly
-     one launch of K1, K2 mxu, K3 mxu and K4 f32, the frame's time beside
-     the single-device frame's and its peak memory, five steps of
-     ``make_sharded_train_step`` on a 1x1 mesh with densify (the first
-     profiled: its backward runs no scatter-add) and a sharded densify
-     round; (c) four spawned ranks sharing the one card through gloo with
-     CUDA tensors (NCCL takes one rank per device), 500K gaussians each:
-     the assembled image within 2e-5 of 9b's, the gradients within
-     GRAD_TOL, then five training steps on a 2x2 mesh (the first profiled
-     as in 9b on every rank). These are
-     four processes on one card exchanging through the host, not a
-     multi-GPU number.
+     one launch of K1, K2 mxu, K3 mxu and K4 f32, K1 at the band-padded
+     grid bit for bit and K4 f32 on the frame's ids within SUM_TOL of their
+     plain versions, five steps of ``make_sharded_train_step`` on a 1x1
+     mesh with densify (the first profiled: its backward runs no
+     scatter-add) and a sharded densify round; (c) four spawned ranks
+     sharing the one card through gloo with CUDA tensors (NCCL takes one
+     rank per device), 500K gaussians each: the assembled image within 2e-5
+     of 9b's, the gradients within GRAD_TOL, then five training steps on a
+     2x2 mesh (the first profiled as in 9b on every rank). These are four
+     processes on one card exchanging through the host;
   10. the real-scene quality proof
      (``luisacomputegaussiansplatting_tpu_torch/scripts/real_scene_proof.py``)
      at the JAX script's full presets: gen in its own process (a
@@ -130,7 +134,8 @@ PyTorch version, and drives the port's render and training paths end to end:
      process (the train CLI, 4,000 steps of two views at 200K capacity
      from 30K points, a densify round every 150 steps, a checkpoint every
      500; K1, K2 vpu, K3 vpu and K4 f32 twice every step; step
-     P10_PROFILE_STEP under the profiler), eval in its own
+     P10_PROFILE_STEP under the profiler, with device time and no
+     select_backward), eval in its own
      process (4 held-out poses at 1600x1063: PSNR >= P10_PSNR, SSIM >=
      P10_SSIM), parity (the render CLI at the strict settings on the card
      and on the CPU: the same ``num_rendered``, the frames within
@@ -143,17 +148,22 @@ PyTorch version, and drives the port's render and training paths end to end:
      stage's seconds, the densify trajectory and the final loss.
 
 Every phase runs, in order; to rehearse one, import this module and call
-its ``phaseN`` function. ``--compare ROOT`` prints only one JSON line,
-computed by the port package of the tree at ROOT (to hold another tree to
-this one's bits and time and profile both with the same code): on phase
-3's and phase 6's frames, the forward and backward blends' digests, K2's
-and the expansion's device times, and the differentiable frame's image,
-five-gradient and background digests, median ms, peak GiB, busy ms and
-the op sums of phase 6's profile; then phase 7's batched step: the
-digests of its gradients and statistics, its ms, peak GiB, busy ms and op
-sums. With ``--grads FILE`` the first tree saves the batched step's
-gradients there and each later tree prints its max relative difference
-from them.
+its ``phaseN`` function. Each kernel's record on the ``"kernels"`` line
+holds its device ms (``device_ms``: K1-K4 once on phase 3's or 5's strict
+frame and once on phase 6's production frame, K5 and K6 at 6M), its plain
+(and, for K4, ``index_add_``'s) ms with host issue (``cuda_ms``), and its
+``bound_ms`` and ``bound_by`` (``kernel_bound``: ``gsbench.work.k1_work``
+... ``k4_work`` on the frame's counts; K5's and K6's byte and operation
+counts a gaussian beside their phases).
+
+``--compare ROOT`` prints only one JSON line of digests, computed by the
+port package of the tree at ROOT with this tree's code (to hold another
+tree to this one's bits): on phase 3's and phase 6's frames, K2's colour
+and T and K3's slots (on a seeded residual), and the differentiable
+frame's image and six gradients; then phase 7's first batched step: its
+six groups' gradients and ``grad_sum``. With ``--grads FILE`` the first
+tree saves the batched step's gradients there and each later tree prints
+its max relative difference from them (``max_rel_to_saved``).
 
 BLEND_TOL: max |diff| <= 5e-4 on colour and T, except at most 1e-5 of the
 pixels (transmittance-stop flips), which stay <= 2e-2.
@@ -188,11 +198,14 @@ import math
 import os
 import re
 import shutil
-import statistics
 import struct
 import subprocess
 import sys
 import time
+
+# the benchmark's yardstick, imported before ``--compare ROOT`` puts another
+# tree first on sys.path (a tree without gsbench/ can then be compared)
+from gsbench import work as W
 
 TOL = 5e-4
 FLIP_TOL = 2e-2
@@ -207,18 +220,6 @@ PKG = "luisacomputegaussiansplatting_tpu_torch/csrc"
 JAX_OPS = "luisacomputegaussiansplatting_tpu/ops"
 # device_ms' spin before each timed call: ~2.5 ms at the H100's ~1.98 GHz
 SPIN_CYCLES = 5_000_000
-
-# published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# FP32 operations per (entry, pixel) pair, counted from the kernels: for
-# every evaluated pair the power and its test (vpu: the conic quadratic;
-# mxu: the pixel polynomial, 5 multiplies and 5 adds, and the guard test);
-# for an applied pair the forward adds exp, log1p, exp, a division and the
-# colour sums, the backward also the nine gradient terms and their share of
-# the shuffles
-OPS_PER_PAIR = {"vpu": 10, "mxu": 11}
-OPS_PER_APPLIED = {"forward": 15, "backward": 50}
 
 
 class SmokeFailure(Exception):
@@ -236,7 +237,8 @@ def log(msg):
 
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    timed with CUDA events on the current stream."""
+    timed with CUDA events on the current stream, the host's issue
+    included: for the plain and library versions beside a kernel."""
     from luisacomputegaussiansplatting_tpu_torch.utils.profiling import Timer
 
     return Timer(warmup=1, reps=reps).time(fn) * 1e3
@@ -244,8 +246,8 @@ def cuda_ms(fn, reps):
 
 def device_ms(fn, reps=5):
     """Mean device milliseconds of one ``fn()`` over ``reps`` calls after
-    one: CUDA events around the call alone, without the host time of its
-    wrapper (which ``cuda_ms`` includes where the host is the slower). Each
+    one, a kernel's one time: CUDA events around the call alone, without
+    the host time of its wrapper (which ``cuda_ms`` includes). Each
     call is queued behind a spin kernel (``torch.cuda._sleep``, ~2.5 ms),
     so the device runs the call's kernels back to back however long the
     host takes to launch them; the run fails if the spin ended before the
@@ -270,26 +272,14 @@ def device_ms(fn, reps=5):
     return total / reps
 
 
-def timed_once(fn):
-    """(result, milliseconds) of one run of ``fn()``, with CUDA events."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    FP32 operations over the FP32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_bound(nbytes, ops):
+    """A kernel record's ``bound_ms`` and ``bound_by`` in the benchmark's
+    yardstick: ``gsbench.work.bound_s`` of (bytes, FP32 operations), as
+    ``gsbench.work.k1_work`` ... ``k4_work`` count them, and which of its
+    two terms sets it."""
+    by_bytes = nbytes / W.HBM_BYTES_PER_S >= ops / W.FP32_OPS_PER_S
+    return {"bound_ms": W.bound_s(nbytes, ops) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
 
 
 def kernel_libs():
@@ -424,12 +414,15 @@ def check_sums(tag, got, want):
     return float((got - want).abs().max()), rel
 
 
+# gsbench/reference/render.py::pair_counts counts the same pairs on its own
+# square tiles; this one alone takes the port's rectangular tiles and band
+# offsets
 def pair_counts(payload, tile_starts, tile_counts, grid_x, width, height, cfg,
                 tile_offset=0):
     """(evaluated, applied) (entry, pixel) pairs of a blend over this
     payload: every in-image pixel against its tile's real entries up to and
     including the one where it stops, and of those the pairs it applies;
-    from the plain forward's replay (for the kernels' bounds)."""
+    from the plain forward's replay (for K2's and K3's bounds)."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import (
@@ -726,37 +719,21 @@ def tensor_digest(t):
     return hashlib.sha256(v.tobytes()).hexdigest()[:16]
 
 
-#: the ops a full-size zero-filled cotangent per column runs as: each
-#: ``aten::select_backward`` fills a buffer the size of its input (fill_)
-#: and writes its column (copy_); the engine adds the buffers (add_)
-COTANGENT_OPS = ("aten::add_", "aten::fill_", "aten::copy_")
-
-
-def op_sums(prof):
-    """Device ms of a ``FrameProfile``: the self time of add_, fill_ and
-    copy_, and the whole time of what select_backward ran."""
-    self_ms = {name: ms for name, ms, _ in prof.ops}
-    out = {op.split("::")[1]: self_ms.get(op, 0.0) for op in COTANGENT_OPS}
-    out["select_backward"] = sum(ms for name, ms, _ in prof.totals
-                                 if name == "aten::select_backward")
-    return out
-
-
-def log_op_sums(tag, prof):
-    sums = op_sums(prof)
-    log(f"{tag}: device ms add_ {sums['add_']:.3f}, fill_ "
-        f"{sums['fill_']:.3f}, copy_ {sums['copy_']:.3f} (sum "
-        f"{sums['add_'] + sums['fill_'] + sums['copy_']:.3f}); ops born of "
-        f"select_backward {sums['select_backward']:.3f}")
-    return sums
+def select_backward_ms(prof):
+    """Device ms of what ``aten::select_backward`` ran in a
+    ``FrameProfile``: a full-size zero-filled cotangent a column, which the
+    columns crossing through ``utils/packing.py`` avoid."""
+    return sum(ms for name, ms, _ in prof.totals
+               if name == "aten::select_backward")
 
 
 def forward_variants(tag, payload, ranges, gx, gy, w, h, cfg, color, trans,
                      plain, reps):
     """K2 at every number of pixels a thread that the tile admits: each the
     same bits as the wrapper's ``color``/``trans``, within BLEND_TOL of the
-    plain forward ``plain`` (colour, T), and, where ``reps``, timed. Logs
-    the times beside the wrapper's choice; returns {pixels a thread: ms}."""
+    plain forward ``plain`` (colour, T), and, where ``reps``, timed on the
+    device. Logs the times beside the wrapper's choice; returns {pixels a
+    thread: ms}."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import _launch_forward, forward_launch_shape
@@ -776,7 +753,7 @@ def forward_variants(tag, payload, ranges, gx, gy, w, h, cfg, color, trans,
             check_blend(f"{tag} {per} px/thread",
                         *blend_diff(ck, tk, *plain, gx, gy, w, h, cfg.tile_wh))
             if reps:
-                times[per] = cuda_ms(launch, reps)
+                times[per] = device_ms(launch, reps)
     timed = "".join(f"; {p} px/thread {ms:.3f} ms" for p, ms in times.items())
     log(f"{tag}: forward blend {cfg.blend_quad} instances "
         f"{forward_instances(tw, th)} bit-identical{timed}; the wrapper "
@@ -885,16 +862,15 @@ def phase_sh(dev, n=SH_N):
     records = []
     for way, ms, plain in (("forward", fwd_ms, plain_fwd),
                            ("backward", bwd_ms, plain_bwd)):
-        b = bound(SH_BYTES[way] * n, SH_OPS[way] * n)
+        b = kernel_bound(SH_BYTES[way] * n, SH_OPS[way] * n)
         log(f"phase_sh: K5 {way} at {n} gaussians {ms:.4f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / ms:.1f}% of it; plain "
-            f"{plain:.3f} ms")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it; plain {plain:.3f} ms")
         records.append(
             {"name": f"sh_{way}", "route": "cuda", "source": f"{PKG}/sh.cu",
              "replaces": None, "launches": 1,
              "max_abs_err": 0.0 if way == "forward" else errs,
-             "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
-             "library_ms": None})
+             "ms": ms, "plain_ms": plain, **b, "library_ms": None})
     return records
 
 
@@ -1053,17 +1029,16 @@ def phase_projection(dev, n=PROJ_N):
     records = []
     for way, ms, plain in (("forward", fwd_ms, plain_fwd),
                            ("backward", bwd_ms, plain_bwd)):
-        b = bound(PROJ_BYTES[way] * n, PROJ_OPS[way] * n)
+        b = kernel_bound(PROJ_BYTES[way] * n, PROJ_OPS[way] * n)
         log(f"phase_projection: K6 {way} at {n} gaussians {ms:.4f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]}): {100 * b[0] / ms:.1f}% of it; plain "
-            f"{plain:.3f} ms")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it; plain {plain:.3f} ms")
         records.append(
             {"name": f"projection_{way}", "route": "cuda",
              "source": f"{PKG}/projection.cu", "replaces": None,
              "launches": 1,
              "max_abs_err": 0.0 if way == "forward" else errs,
-             "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
-             "library_ms": None})
+             "ms": ms, "plain_ms": plain, **b, "library_ms": None})
     return records
 
 
@@ -1139,8 +1114,7 @@ def phase3(dev):
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.binning import bin_gaussians, expand_entries
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import forward_launch_shape, rasterize_forward
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, render_aux
 
@@ -1187,7 +1161,7 @@ def phase3(dev):
         log(f"phase3: K2 digest {digest}")
         check(digest == K2_DIGESTS["phase3"],
               f"phase3: K2 digest {digest} != {K2_DIGESTS['phase3']}")
-        forward_variants(
+        k2_times = forward_variants(
             "phase3", payload, (bp.tile_starts, bp.tile_counts), gx, gy, w,
             h, cfg, ck, tk, (cp, tp), 5)
         # the main-path image against the all-plain one
@@ -1197,71 +1171,51 @@ def phase3(dev):
         check_blend("phase3 frame", float(d.max()), int((d > TOL).sum()),
                     w * h)
 
-        reps = 5
-        k1_ms = cuda_ms(lambda: expand_entries_kernel(
-            proj, gx, nt, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min), reps)
+        # the kernels' device times, the plain versions' with host issue
         k1_split = expansion_split(proj, gx, nt, cfg.max_pairs, None, cfg)
         k1_plain = cuda_ms(lambda: expand_entries(
-            proj, gx, nt, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min), reps)
-        k2_ms = cuda_ms(lambda: rasterize_forward(
-            payload, bp.tile_starts, bp.tile_counts, gx, w, h, cfg), reps)
+            proj, gx, nt, cfg.max_pairs, None, cfg.tile_wh, cfg.alpha_min), 5)
         k2_plain = cuda_ms(lambda: rasterize_reference(
             payload, bp.tile_starts, bp.tile_counts, gx, w, h, cfg), 2)
-
-        render_aux(*args, cam, cfg=cfg)  # warm-up
-        frames = []
-        for _ in range(5):
-            frames.append(timed_once(lambda: render_aux(*args, cam,
-                                                        cfg=cfg))[1])
-        peak = torch.cuda.max_memory_allocated() / 2**30
         evaluated, applied = pair_counts(payload, bp.tile_starts,
                                          bp.tile_counts, gx, w, h, cfg)
-        k2_dev = device_ms(lambda: rasterize_forward(
-            payload, bp.tile_starts, bp.tile_counts, gx, w, h, cfg))
 
-    frame_ms = statistics.median(frames)
+    k2_ms = k2_times[forward_launch_shape(*cfg.tile_wh)[1]]
+    n_g = scene.means.shape[0]
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    k1_bound = kernel_bound(*W.k1_work(n_g, cfg.max_pairs, aabb_total, False))
+    k2_bound = kernel_bound(*W.k2_work(num_rendered, nt, pix, evaluated,
+                                       applied, cfg.blend_quad))
     log(f"phase3: 2M gaussians 1920x1080 strict-parity: aabb_total={aabb_total} "
         f"num_rendered={num_rendered} capacity={payload.shape[1]}")
-    log(f"phase3: frame_ms median of 5 = {frame_ms:.3f} "
-        f"(all: {' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
-    log(f"phase3: expansion kernel {k1_ms:.3f} ms (device time: prefix "
-        f"sums {k1_split[0]:.3f}, the kernel alone {k1_split[1]:.3f}) vs "
-        f"plain {k1_plain:.3f} ms; blend kernel {k2_ms:.3f} ms (device time "
-        f"{k2_dev:.3f}) vs plain {k2_plain:.3f} ms")
+    log(f"phase3: expansion device ms: prefix sums {k1_split[0]:.3f}, the "
+        f"kernel {k1_split[1]:.3f} (bound {k1_bound['bound_ms']:.3f} "
+        f"{k1_bound['bound_by']}); plain {k1_plain:.3f} ms; blend kernel "
+        f"{k2_ms:.3f} (bound {k2_bound['bound_ms']:.3f} "
+        f"{k2_bound['bound_by']}); plain {k2_plain:.3f} ms")
     log(f"phase3: blend pairs evaluated {evaluated} applied {applied}")
 
-    # bounds from this run's inputs: each input read once, each output
-    # written once; the slots the ranges use of the payload
-    used = used_slots(bp)
-    n_g = scene.means.shape[0]
-    k1_bytes = n_g * 28 + cfg.max_pairs * 12  # ends, rects, depth -> 3 x 4 B
-    k1_bound = bound(k1_bytes, cfg.max_pairs * n_g.bit_length())
-    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
-    k2_bytes = used * 9 * 4 + nt * 8 + nt * pix * 16
-    k2_bound = bound(k2_bytes, evaluated * OPS_PER_PAIR["vpu"]
-                     + applied * OPS_PER_APPLIED["forward"])
     context = dict(scene=scene, cam=cam, cfg=cfg, pairs=(evaluated, applied),
-                   used=used)
+                   entries=num_rendered)
     return [
         {"name": "expand_entries", "route": "cuda",
          "source": f"{PKG}/expand.cu",
          "replaces": f"{JAX_OPS}/expand_pallas.py:137",
          "launches": launches["expand"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "ms": k1_split[1], "plain_ms": k1_plain, **k1_bound,
+         "library_ms": None},
         {"name": "rasterize_forward", "route": "cuda",
          "source": f"{PKG}/rasterize.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
          "launches": launches["rasterize_vpu"], "max_abs_err": blend[0],
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "ms": k2_ms, "plain_ms": k2_plain, **k2_bound, "library_ms": None},
     ], context
 
 
 def expansion_split(proj, gx, nt, max_pairs, cull_op, cfg):
     """(device ms of ``prefix_sums``, device ms of K1's launch on its
     output): the expansion wrapper's two parts timed apart (``device_ms``),
-    the second the kernel alone."""
+    the second the kernel alone, K1's time."""
     from luisacomputegaussiansplatting_tpu_torch.ops.expand import _launch_expand, prefix_sums
 
     _, ends, total_f = prefix_sums(proj.tiles_touched)
@@ -1299,8 +1253,8 @@ def backward_stages(tag, payload, binned, residual, gx, w, h, cfg, n_out):
     ranges = (binned.tile_starts, binned.tile_counts)
     dk = rasterize_backward(payload, *ranges, residual, gx, w, h, cfg)
     dk2 = rasterize_backward(payload, *ranges, residual, gx, w, h, cfg)
-    dp, plain_ms = timed_once(lambda: rasterize_backward_reference(
-        payload, *ranges, residual, gx, w, h, cfg))
+    dp = rasterize_backward_reference(payload, *ranges, residual, gx, w, h,
+                                      cfg)
     used = used_slots(binned)
     check(torch.equal(dk[:, :used], dk2[:, :used]),
           f"{tag}: backward blend kernel is not deterministic (two runs "
@@ -1309,7 +1263,7 @@ def backward_stages(tag, payload, binned, residual, gx, w, h, cfg, n_out):
     err = check_fields(tag, "d_payload", dk.t(), dp.t(), fields,
                        rows=binned.entry_gid >= 0)
     b2_abs = float((dk[:, :used] - dp[:, :used]).abs().max())
-    out = {"b2": (dk, dp, b2_abs, err, plain_ms)}
+    out = {"b2": (dk, dp, b2_abs, err)}
     for dtype in ("f32", "bf16"):
         s1 = reduce_fields_by_id(binned.entry_gid, dk, n_out, dtype)
         s2 = reduce_fields_by_id(binned.entry_gid, dk, n_out, dtype)
@@ -1422,8 +1376,9 @@ def check_adversarial_segments(name, dev):
 def backward_variants(tag, payload, binned, residual, gx, w, h, cfg, dp,
                       reps):
     """K3 at every number of pixels a thread that the tile admits, each
-    held to GRAD_TOL of the plain backward ``dp`` and timed; logs the
-    times beside the wrapper's choice and returns {pixels a thread: ms}."""
+    held to GRAD_TOL of the plain backward ``dp`` and timed on the device;
+    logs the times beside the wrapper's choice and returns {pixels a
+    thread: ms}."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import BACKWARD_PIXELS_PER_THREAD, _launch_backward, backward_launch_shape
@@ -1443,7 +1398,7 @@ def backward_variants(tag, payload, binned, residual, gx, w, h, cfg, dp,
         with torch.no_grad():
             check_fields(f"{tag} {per} px/thread", "d_payload", launch().t(),
                          dp.t(), fields, rows=binned.entry_gid >= 0)
-            times[per] = cuda_ms(launch, reps)
+            times[per] = device_ms(launch, reps)
     chosen = backward_launch_shape(tw, th)[1]
     log(f"{tag}: backward blend {cfg.blend_quad} by pixels a thread: "
         + ", ".join(f"{p}: {ms:.3f} ms" for p, ms in times.items())
@@ -1480,8 +1435,8 @@ def phase5(dev, ctx):
 
     from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
     from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import backward_launch_shape, make_residual, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_backward_reference, rasterize_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
     from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
@@ -1534,7 +1489,7 @@ def phase5(dev, ctx):
                                  trans.detach())
         st = backward_stages("phase5", payload, binned, residual, gx, w, h,
                              cfg, scene.means.shape[0])
-    dk, dp, b2_abs, _b2_rel, b2_plain = st["b2"]
+    dk, dp, b2_abs, _b2_rel = st["b2"]
 
     # the five groups' gradients through the all-plain backward
     n = scene.means.shape[0]
@@ -1544,7 +1499,7 @@ def phase5(dev, ctx):
     proj_g = project_gaussians(leaves[0], leaves[1], leaves[2], cam, cfg)
     table = payload_table(proj_g, colors, leaves[3])
     plain = list(torch.autograd.grad(table, leaves, grad_outputs=d_table,
-                                     allow_unused=True, retain_graph=True))
+                                     allow_unused=True))
     plain = [torch.zeros_like(l) if g is None else g
              for g, l in zip(plain, leaves)]
     with torch.no_grad():
@@ -1559,72 +1514,32 @@ def phase5(dev, ctx):
             check(rel <= 2e-2, f"phase5: bf16 reduce gradient of {name} "
                                f"is {rel:.2e} off the f32 one")
 
-    # times of the kernels and their plain versions at the frame's shapes
-    reps = 5
+    # K2 at the frame's shapes is phase 3's; K3 and K4 f32 timed on the
+    # device, their plain and library versions with host issue
     ranges = (binned.tile_starts, binned.tile_counts)
     with torch.no_grad():
         plain_fwd = rasterize_reference(payload, *ranges, gx, w, h, cfg)
     forward_variants("phase5", payload, ranges, gx, gy, w, h, cfg, color,
-                     trans, plain_fwd, reps)
+                     trans, plain_fwd, 0)
     del plain_fwd
-    backward_variants("phase5", payload, binned, residual, gx, w, h, cfg, dp,
-                      reps)
+    k3_times = backward_variants("phase5", payload, binned, residual, gx, w,
+                                 h, cfg, dp, 5)
     with torch.no_grad():
-        b2_ms = cuda_ms(lambda: rasterize_backward(
-            payload, *ranges, residual, gx, w, h, cfg), reps)
+        k3_plain = cuda_ms(lambda: rasterize_backward_reference(
+            payload, *ranges, residual, gx, w, h, cfg), 1)
         key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
                           torch.full_like(binned.entry_gid, n))
-        (sorted_key, perm), sort_ms = timed_once(
-            lambda: torch.sort(key, stable=True))
-        rows, gather_ms = timed_once(lambda: dk[:, perm])
-        rows_t = rows.t()
-        n_valid = int((sorted_key < n).sum())
-        seg = {}
-        for dtype in ("f32", "bf16"):
-            ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
-                                                    dtype), reps)
-            plain_ms = cuda_ms(lambda: segment_sum_reference(
-                sorted_key, rows_t, n, dtype), reps)
-            lib_rows = torch.where((sorted_key < n)[:, None],
-                                   rows_t if dtype == "f32" else
-                                   rows_t.to(torch.bfloat16).float(), 0.0)
-            key64 = sorted_key.to(torch.int64)
-            acc = torch.zeros((n + 1, 9), device=dev)
-            lib_ms = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
-            seg[dtype] = (ms, plain_ms, lib_ms)
-        d_table_k = segment_sum_kernel(sorted_key, rows_t, n, "f32")
-    _, vjp_ms = timed_once(lambda: torch.autograd.grad(
-        table, leaves, grad_outputs=d_table_k, allow_unused=True))
-
-    # the differentiable frame: median of 5 chained reps (rep i's bg hangs
-    # on rep i-1's loss, bench.py:133-140)
-    with torch.no_grad():
-        render_aux(*leaves, cam, cfg=cfg)  # warm-up after the VJPs
-        fwd_ms = statistics.median(
-            timed_once(lambda: render_aux(*leaves, cam, cfg=cfg))[1]
-            for _ in range(3))
-    torch.cuda.reset_peak_memory_stats()
-    val = loss
-    fwd_bwd(leaves, bg, cam, cfg)  # warm-up
-    frames = []
-    for _ in range(5):
-        bg_i = (bg.detach() + val * 1e-20).requires_grad_(True)
-        (val, _g, _a), ms = timed_once(lambda: fwd_bwd(leaves, bg_i, cam, cfg))
-        frames.append(ms)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    frame_ms = statistics.median(frames)
-    log(f"phase5: fwd+bwd frame median of 5 = {frame_ms:.3f} ms (all: "
-        f"{' '.join(f'{v:.3f}' for v in frames)}); peak mem {peak:.2f} GiB")
-    log(f"phase5 stages (ms): forward frame (median of 3) {fwd_ms:.3f}; "
-        f"backward blend "
-        f"kernel {b2_ms:.3f}; sort {sort_ms:.3f}; row gather {gather_ms:.3f}; "
-        f"segment-sum kernel f32 {seg['f32'][0]:.3f} bf16 {seg['bf16'][0]:.3f}; "
-        f"projection+SH VJP {vjp_ms:.3f}")
-    log(f"phase5: backward blend {b2_ms:.3f} ms vs plain {b2_plain:.3f} ms; "
-        f"segment-sum f32 {seg['f32'][0]:.3f} ms (plain {seg['f32'][1]:.3f}, "
-        f"index_add_ {seg['f32'][2]:.3f}); bf16 {seg['bf16'][0]:.3f} ms "
-        f"(plain {seg['bf16'][1]:.3f}, index_add_ {seg['bf16'][2]:.3f}); "
-        f"rows summed {n_valid} of {key.shape[0]}")
+        sorted_key, perm = torch.sort(key, stable=True)
+        rows_t = dk[:, perm].t()
+        k4_ms = device_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
+                                                     "f32"))
+        k4_plain = cuda_ms(lambda: segment_sum_reference(
+            sorted_key, rows_t, n, "f32"), 5)
+        lib_rows = torch.where((sorted_key < n)[:, None], rows_t, 0.0)
+        key64 = sorted_key.to(torch.int64)
+        acc = torch.zeros((n + 1, 9), device=dev)
+        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), 5)
+        del lib_rows, key64, acc
 
     # five training steps from a perturbed start towards the scene's render
     with torch.no_grad():
@@ -1637,79 +1552,45 @@ def phase5(dev, ctx):
     view = cam.to_view(dev)
     n_steps = 5
     reset_launches()
-    losses, step_ms = [], []
+    losses = []
     for _ in range(n_steps):
-        t0 = time.perf_counter()
         state, step_loss, step_aux = step(state, view, target)
-        losses.append(float(step_loss))  # synchronises
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(step_loss))
         check(not bool(step_aux.overflow), "phase5 training: overflow")
     check_launches("phase5 training", read_launches(),
                    **{k: n_steps for k in one}, segsum_f32=n_steps)
-    log(f"phase5 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
-        f"ms per step median {statistics.median(step_ms):.3f} (all: "
-        f"{' '.join(f'{v:.3f}' for v in step_ms)})")
+    log(f"phase5 training: losses {' '.join(f'{v:.6f}' for v in losses)}")
     check(all(map(math.isfinite, losses)), "phase5 training: non-finite loss")
     check(losses[-1] < losses[0], "phase5 training: the loss did not fall")
 
-    # bounds from this run's inputs
+    # bounds from this run's inputs, in the benchmark's yardstick
+    k3_ms = k3_times[backward_launch_shape(*cfg.tile_wh)[1]]
     nt = gx * gy
     pix = cfg.tile_wh[0] * cfg.tile_wh[1]
-    evaluated, applied = ctx["pairs"]
-    # the payload slots in range read, their gradients written
-    b2_bytes = ctx["used"] * 9 * 4 * 2 + nt * pix * 32 + nt * 8
-    b2_bound = bound(b2_bytes, evaluated * OPS_PER_PAIR["vpu"]
-                     + applied * OPS_PER_APPLIED["backward"])
-    seg_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
-    record = [
+    entries = ctx["entries"]
+    k3_bound = kernel_bound(*W.k3_work(entries, nt, pix, *ctx["pairs"],
+                                       cfg.blend_quad))
+    k4_bound = kernel_bound(*W.k4_work(entries, n))
+    log(f"phase5: backward blend {k3_ms:.3f} ms (bound "
+        f"{k3_bound['bound_ms']:.3f} {k3_bound['bound_by']}) vs plain "
+        f"{k3_plain:.3f} ms; segment-sum f32 {k4_ms:.3f} ms (bound "
+        f"{k4_bound['bound_ms']:.3f} {k4_bound['bound_by']}; plain "
+        f"{k4_plain:.3f}, index_add_ {k4_lib:.3f}); rows summed {entries} "
+        f"of {key.shape[0]}")
+    return [
         {"name": "rasterize_backward", "route": "cuda",
          "source": f"{PKG}/rasterize_backward.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
          "launches": launches["rasterize_backward_vpu"],
-         "max_abs_err": b2_abs,
-         "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound[0],
-         "bound_by": b2_bound[1], "library_ms": None},
+         "max_abs_err": b2_abs, "ms": k3_ms, "plain_ms": k3_plain,
+         **k3_bound, "library_ms": None},
+        {"name": "segment_sum_f32", "route": "cuda",
+         "source": f"{PKG}/segsum.cu",
+         "replaces": f"{JAX_OPS}/segsum.py:46",
+         "launches": launches["segsum_f32"], "max_abs_err": st["f32"][2],
+         "ms": k4_ms, "plain_ms": k4_plain, **k4_bound,
+         "library_ms": k4_lib},
     ]
-    # each variant's count from the frame that runs it
-    for dtype, line, counts in (("f32", 46, launches),
-                                ("bf16", 129, launches16)):
-        ms, plain_ms, lib_ms = seg[dtype]
-        record.append(
-            {"name": f"segment_sum_{dtype}", "route": "cuda",
-             "source": f"{PKG}/segsum.cu",
-             "replaces": f"{JAX_OPS}/segsum.py:{line}",
-             "launches": counts[f"segsum_{dtype}"],
-             "max_abs_err": st[dtype][2], "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": seg_bound[0], "bound_by": seg_bound[1],
-             "library_ms": lib_ms})
-    return record
-
-
-def entry_counts(scene, cam, cfg):
-    """(AABB slots, entries the tile cull keeps) of a scene at ``cfg``: the
-    expansion kernel at the configuration's capacity (the kept count is
-    exact while the AABB total fits)."""
-    import torch
-
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
-    from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians, tile_grid
-
-    with torch.no_grad():
-        proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
-                                 cfg)
-        gx, gy = tile_grid(cam.width, cam.height, cfg.tile_wh)
-        _t, _d, gid, total = expand_entries_kernel(
-            proj, gx, gx * gy, cfg.max_pairs, cull_opacity(scene, cfg),
-            cfg.tile_wh, cfg.alpha_min)
-        return int(total), int((gid >= 0).sum())
-
-
-def log_frames(tag, res):
-    log(f"{tag}: fwd+bwd frame median of {len(res['reps_ms'])} chained reps "
-        f"= {res['median_ms']:.3f} ms, mean {res['ms']:.3f} (all: "
-        f"{' '.join(f'{v:.3f}' for v in res['reps_ms'])}); first frame "
-        f"{res['first_ms']:.3f} ms; num_rendered {res['num_rendered']}; "
-        f"peak mem {res['peak_gib']:.2f} GiB; {res['px_s']:.1f} px/s")
 
 
 #: phase 6: views on the bench camera's ring rendered from one stacked
@@ -1755,34 +1636,20 @@ def check_stacked_views(scene, cam, cfg, dev):
 
 
 def phase6(dev):
-    """The production slice: bench.py's headline (2M) and north-star (6M)
-    configurations at 1920x1080, ``blend_quad="mxu"``."""
+    """The production slice: bench.py's headline configuration (2M
+    gaussians) at 1920x1080, ``blend_quad="mxu"``."""
     import torch
 
     import bench_cuda
     from luisacomputegaussiansplatting_tpu_torch.models import TrainConfig, init_train_state, make_train_step
     from luisacomputegaussiansplatting_tpu_torch.ops.binning import expand_entries
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
     from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import make_residual, rasterize_backward, rasterize_forward
-    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_reference
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import backward_launch_shape, forward_launch_shape, make_residual, rasterize_forward
+    from luisacomputegaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_backward_reference, rasterize_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.render import _tiles_to_image, payload_table, render_aux
     from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_starts_reference, segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.ops.sh_eval import compute_colors
     from luisacomputegaussiansplatting_tpu_torch.utils.profiling import frame_profile, fwd_bwd_frame
-
-    # the timed frames first, each scale alone on the card: bench's chained
-    # reps through the bench's own function
-    heads = bench_cuda.run_config("headline", dev)
-    log_frames("phase6 headline", heads)
-    scene, cam, cfg, _ = bench_cuda.scene_camera_config("north_star", dev)
-    ns_counts = entry_counts(scene, cam, cfg)
-    del scene
-    ns = bench_cuda.run_config("north_star", dev)
-    log(f"phase6 north star: 6M gaussians, AABB slots {ns_counts[0]} of "
-        f"max_pairs {cfg.max_pairs}, kept by the cull {ns_counts[1]} of "
-        f"max_pairs_sorted {cfg.max_pairs_sorted}")
-    log_frames("phase6 north star", ns)
 
     scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline", dev)
     w, h = cam.width, cam.height
@@ -1807,10 +1674,6 @@ def phase6(dev):
               f"phase6: gradient of {name} is not finite or mis-shaped")
         check(float(g.abs().max()) > 0, f"phase6: zero gradient of {name}")
     num_rendered = int(aux.num_rendered)
-    aabb, kept = entry_counts(scene, cam, cfg)
-    log(f"phase6 headline: 2M gaussians, AABB slots {aabb} of max_pairs "
-        f"{cfg.max_pairs}, kept by the cull {kept} of max_pairs_sorted "
-        f"{cfg.max_pairs_sorted}, num_rendered {num_rendered}")
     check_stacked_views(scene, cam, cfg, dev)
 
     # the stages again: the expansion kernel with the cull on the frame's
@@ -1824,12 +1687,17 @@ def phase6(dev):
         cull_op = cull_opacity(scene, cfg)
         _k, k1_err = compare_expansion(proj, gx, gx * gy, cfg.max_pairs,
                                        cull_op, cfg.tile_wh, cfg)
+        aabb = int(_k[3])
+        log(f"phase6 headline: 2M gaussians, AABB slots {aabb} of max_pairs "
+            f"{cfg.max_pairs}, kept by the cull {int((_k[2] >= 0).sum())} of "
+            f"max_pairs_sorted {cfg.max_pairs_sorted}, num_rendered "
+            f"{num_rendered}")
         _p, _g, bp, _pl = bin_and_payload(scene, cam, cfg, expansion="xla")
         for f in binned._fields:
             check(torch.equal(getattr(binned, f), getattr(bp, f)),
                   f"phase6: binning {f} differs kernel vs plain expansion")
-        log(f"phase6: expansion kernel with the cull identical to plain "
-            f"(total {int(_k[3])}), binning identical with either expansion")
+        log("phase6: expansion kernel with the cull identical to plain, "
+            "binning identical with either expansion")
         del _k, _p, _g, bp, _pl
         ranges = (binned.tile_starts, binned.tile_counts)
         ck, tk = rasterize_forward(payload, *ranges, gx, w, h, cfg)
@@ -1840,8 +1708,8 @@ def phase6(dev):
         log(f"phase6: K2 mxu digest {digest}")
         check(digest == K2_DIGESTS["phase6"],
               f"phase6: K2 digest {digest} != {K2_DIGESTS['phase6']}")
-        forward_variants("phase6 mxu", payload, ranges, gx, gy, w, h, cfg,
-                         ck, tk, (cp, tp), 5)
+        k2_times = forward_variants("phase6 mxu", payload, ranges, gx, gy, w,
+                                    h, cfg, ck, tk, (cp, tp), 5)
         cfg_vpu = dataclasses.replace(cfg, blend_quad="vpu")
         cv, tv = rasterize_forward(payload, *ranges, gx, w, h, cfg_vpu)
         d_max, n_over, n_pix = blend_diff(ck, tk, cv, tv, gx, gy, w, h,
@@ -1865,10 +1733,10 @@ def phase6(dev):
         residual = make_residual(d_color, d_trans, ck, tk)
         st = backward_stages("phase6 mxu", payload, binned, residual, gx, w,
                              h, cfg, n)
-    dk, dp, b3_abs, _b3_rel, b3_plain = st["b2"]
+    dk, dp, b3_abs, _b3_rel = st["b2"]
     k4_err = st["bf16"][2]
-    backward_variants("phase6 mxu", payload, binned, residual, gx, w, h, cfg,
-                      dp, 5)
+    k3_times = backward_variants("phase6 mxu", payload, binned, residual, gx,
+                                 w, h, cfg, dp, 5)
 
     # the five groups' gradients through the all-plain backward, with the
     # frame's bf16 reduction
@@ -1890,66 +1758,60 @@ def phase6(dev):
                          p.reshape(-1, 1), [name])
     del table, proj_g, colors, plain, d_table, dp, st
 
-    # kernel and plain times at the frame's shapes, and the forward frame
-    reps = 5
+    # K1 and K4 at this frame's shapes (tile 32 with the cull; the trimmed
+    # stream's rows, rounded to bf16) timed on the device, K2 and K3 by
+    # their variants above; the plain and library versions with host issue
     with torch.no_grad():
-        k2_ms = cuda_ms(lambda: rasterize_forward(
-            payload, *ranges, gx, w, h, cfg), reps)
         k2_plain = cuda_ms(lambda: rasterize_reference(
             payload, *ranges, gx, w, h, cfg), 2)
-        k3_ms = cuda_ms(lambda: rasterize_backward(
-            payload, *ranges, residual, gx, w, h, cfg), reps)
-        render_aux(*scene.render_args(), cam, cfg=cfg)  # warm-up
-        fwd = [timed_once(lambda: render_aux(*scene.render_args(), cam,
-                                             cfg=cfg))[1] for _ in range(5)]
+        k3_plain = cuda_ms(lambda: rasterize_backward_reference(
+            payload, *ranges, residual, gx, w, h, cfg), 1)
         evaluated, applied = pair_counts(payload, *ranges, gx, w, h, cfg)
-        # K1 and K4 at this frame's shapes (tile 32 with the cull; the
-        # trimmed stream's rows, rounded to bf16), with their bounds
-        k1_ms = cuda_ms(lambda: expand_entries_kernel(
-            proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
-            cfg.alpha_min), reps)
         k1_plain = cuda_ms(lambda: expand_entries(
             proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
-            cfg.alpha_min), reps)
+            cfg.alpha_min), 5)
         k1_split = expansion_split(proj, gx, gx * gy, cfg.max_pairs, cull_op,
                                    cfg)
-        k2_dev = device_ms(lambda: rasterize_forward(
-            payload, *ranges, gx, w, h, cfg))
         key = torch.where(binned.entry_gid >= 0, binned.entry_gid,
                           torch.full_like(binned.entry_gid, n))
         sorted_key, perm = torch.sort(key, stable=True)
         rows_t = dk[:, perm].t()
-        n_valid = int((sorted_key < n).sum())
-        k4_ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
-                                                   "bf16"), reps)
+        k4_ms = device_ms(lambda: segment_sum_kernel(sorted_key, rows_t, n,
+                                                     "bf16"))
         k4_plain = cuda_ms(lambda: segment_sum_reference(
-            sorted_key, rows_t, n, "bf16"), reps)
+            sorted_key, rows_t, n, "bf16"), 5)
         lib_rows = torch.where((sorted_key < n)[:, None],
                                rows_t.to(torch.bfloat16).float(), 0.0)
         key64 = sorted_key.to(torch.int64)
         acc = torch.zeros((n + 1, 9), device=dev)
-        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
+        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), 5)
         seg_len = segment_starts_reference(sorted_key, n).diff()
         longest = int(seg_len.max())
         n_long = int((seg_len > 32).sum())
         n_ids = int((seg_len > 0).sum())
         del lib_rows, key64, acc, seg_len
-    # the cull reads 24 more bytes a gaussian and does ~40 flops a slot
-    k1_bound = bound(n * (28 + 24) + cfg.max_pairs * 12, aabb * 40)
-    k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
-    log(f"phase6: expansion kernel {k1_ms:.3f} ms (device time: prefix "
-        f"sums {k1_split[0]:.3f}, the kernel alone {k1_split[1]:.3f}; plain "
-        f"{k1_plain:.3f}; bound {k1_bound[0]:.3f} {k1_bound[1]}); "
-        f"segment-sum kernel bf16 {k4_ms:.3f} ms (bound "
-        f"{k4_bound[0]:.3f} {k4_bound[1]}; plain {k4_plain:.3f}, index_add_ "
-        f"{k4_lib:.3f}), rows summed {n_valid} of {key.shape[0]}")
+    nt = gx * gy
+    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
+    k1_bound = kernel_bound(*W.k1_work(n, cfg.max_pairs, aabb, True))
+    k2_bound = kernel_bound(*W.k2_work(num_rendered, nt, pix, evaluated,
+                                       applied, cfg.blend_quad))
+    k3_bound = kernel_bound(*W.k3_work(num_rendered, nt, pix, evaluated,
+                                       applied, cfg.blend_quad))
+    k4_bound = kernel_bound(*W.k4_work(num_rendered, n))
+    k2_ms = k2_times[forward_launch_shape(*cfg.tile_wh)[1]]
+    k3_ms = k3_times[backward_launch_shape(*cfg.tile_wh)[1]]
+    for kernel, ms, plain_ms, b in (
+            ("expansion", k1_split[1], k1_plain, k1_bound),
+            ("mxu blend", k2_ms, k2_plain, k2_bound),
+            ("mxu backward blend", k3_ms, k3_plain, k3_bound),
+            ("segment-sum bf16", k4_ms, k4_plain, k4_bound)):
+        log(f"phase6: {kernel} kernel {ms:.3f} device ms (bound "
+            f"{b['bound_ms']:.3f} {b['bound_by']}); plain {plain_ms:.3f} ms")
+    log(f"phase6: expansion prefix sums {k1_split[0]:.3f} device ms; "
+        f"index_add_ {k4_lib:.3f} ms; rows summed {num_rendered} of "
+        f"{key.shape[0]}; pairs evaluated {evaluated} applied {applied}")
     log(f"phase6: segments: {n_ids} of {n} ids have rows; the longest has "
         f"{longest} rows; {n_long} have more than 32 (summed by a warp)")
-    log(f"phase6: forward frame median of 5 = {statistics.median(fwd):.3f} "
-        f"ms (all: {' '.join(f'{v:.3f}' for v in fwd)})")
-    log(f"phase6: mxu blend kernel {k2_ms:.3f} ms (device time {k2_dev:.3f}) "
-        f"vs plain {k2_plain:.3f} ms; mxu backward blend kernel {k3_ms:.3f} ms vs plain "
-        f"{b3_plain:.3f} ms; pairs evaluated {evaluated} applied {applied}")
 
     # five training steps at this config, towards the scene's own render
     with torch.no_grad():
@@ -1962,79 +1824,53 @@ def phase6(dev):
     view = cam.to_view(dev)
     n_steps = 5
     reset_launches()
-    losses, step_ms = [], []
+    losses = []
     for _ in range(n_steps):
-        t0 = time.perf_counter()
         state, step_loss, step_aux = step(state, view, target)
-        losses.append(float(step_loss))  # synchronises
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(step_loss))
         check(not bool(step_aux.overflow), "phase6 training: overflow")
     check_launches("phase6 training", read_launches(), expand=n_steps,
                    rasterize_mxu=n_steps, rasterize_backward_mxu=n_steps,
                    segsum_bf16=n_steps, sh_forward=n_steps,
                    sh_backward=n_steps, projection_forward=n_steps,
                    projection_backward=n_steps)
-    log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}; "
-        f"ms per step median {statistics.median(step_ms):.3f} (all: "
-        f"{' '.join(f'{v:.3f}' for v in step_ms)})")
+    log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}")
     check(all(map(math.isfinite, losses)), "phase6 training: non-finite loss")
     check(losses[-1] < losses[0], "phase6 training: the loss did not fall")
     del state, opt, step, target
 
-    # one production frame under the profiler
+    # one production frame under the profiler: the columns cross through
+    # utils/packing.py, so no select_backward
     prof = frame_profile(scene, cam, cfg)
     check(prof.busy_ms is not None and prof.busy_ms > 0,
           "phase6 profile: no device time recorded")
-    log(f"phase6 profile: one fwd+bwd frame {prof.wall_ms:.3f} ms with the "
-        f"profiler on, device busy {prof.busy_ms:.3f} ms: share "
-        f"{prof.busy_share:.3f} of the profiled frame, "
-        f"{prof.busy_ms / heads['median_ms']:.3f} of the unprofiled median")
-    for what, rows in (("op (self device ms)", prof.ops),
-                       ("kernel (device ms)", prof.kernels)):
-        log(f"phase6 profile: top 15 by {what}, of {len(rows)}:")
-        for name, ms, calls in rows[:15]:
-            log(f"  {ms:9.3f} ms {calls:5d}x  {name[:100]}")
-    # the columns cross through utils/packing.py: no select_backward
-    sums = log_op_sums("phase6 profile", prof)
-    check(sums["select_backward"] == 0,
+    check(select_backward_ms(prof) == 0,
           "phase6 profile: the frame ran select_backward")
 
-    # bounds from this run's inputs (as phases 3 and 5)
-    nt = gx * gy
-    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
-    used = used_slots(binned)
-    k2_bound = bound(used * 9 * 4 + nt * 8 + nt * pix * 16,
-                     evaluated * OPS_PER_PAIR["mxu"]
-                     + applied * OPS_PER_APPLIED["forward"])
-    k3_bound = bound(used * 9 * 4 * 2 + nt * pix * 32 + nt * 8,
-                     evaluated * OPS_PER_PAIR["mxu"]
-                     + applied * OPS_PER_APPLIED["backward"])
     return [
         {"name": "expand_entries_production", "route": "cuda",
          "source": f"{PKG}/expand.cu",
          "replaces": f"{JAX_OPS}/expand_pallas.py:137",
          "launches": launches["expand"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "ms": k1_split[1], "plain_ms": k1_plain, **k1_bound,
+         "library_ms": None},
         {"name": "rasterize_forward_mxu", "route": "cuda",
          "source": f"{PKG}/rasterize.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
          "launches": launches["rasterize_mxu"], "max_abs_err": blend[0],
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "ms": k2_ms, "plain_ms": k2_plain, **k2_bound, "library_ms": None},
         {"name": "rasterize_backward_mxu", "route": "cuda",
          "source": f"{PKG}/rasterize_backward.cu",
          "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
          "launches": launches["rasterize_backward_mxu"],
-         "max_abs_err": b3_abs, "ms": k3_ms, "plain_ms": b3_plain,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None},
+         "max_abs_err": b3_abs, "ms": k3_ms, "plain_ms": k3_plain,
+         **k3_bound, "library_ms": None},
         {"name": "segment_sum_bf16_production", "route": "cuda",
          "source": f"{PKG}/segsum.cu",
          "replaces": f"{JAX_OPS}/segsum.py:129",
          "launches": launches["segsum_bf16"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": k4_lib},
+         "ms": k4_ms, "plain_ms": k4_plain, **k4_bound,
+         "library_ms": k4_lib},
     ]
 
 
@@ -2127,7 +1963,7 @@ def checked_round(tag, params, opt, dstate, extent, dcfg, seed, card):
     CPU from copies of its inputs and that noise, held to it by
     ``check_round``. The round launches no kernel, does not overflow, and
     the active count adds up. Returns (params, opt, densify state, the
-    counters, the round's ms on the host clock)."""
+    counters)."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.models import densify_plan, densify_round, densify_step
@@ -2143,18 +1979,14 @@ def checked_round(tag, params, opt, dstate, extent, dcfg, seed, card):
     gen = torch.Generator(device=dev).manual_seed(seed)
     gen_state = gen.get_state()
     reset_launches()
-    sync(dev)
-    t0 = time.perf_counter()
     out, opt, dstate, info = densify_step(params, opt, dstate, gen, extent,
                                           dcfg)
     counters = {f: getattr(info, f).item() for f in info._fields}
-    sync(dev)
-    round_ms = (time.perf_counter() - t0) * 1e3
     check_launches(f"{tag}: densify round", read_launches())
     check(out is params, f"{tag}: the round made new parameters")
     n_after = int(dstate.num_active)
-    log(f"{tag}: densify round {round_ms:.3f} ms: {counters}; active "
-        f"{n_before} -> {n_after} of {dstate.active.shape[0]} {card}")
+    log(f"{tag}: densify round: {counters}; active {n_before} -> {n_after} "
+        f"of {dstate.active.shape[0]} {card}")
     check(not counters["overflow"], f"{tag}: the densify round overflowed")
     check(n_after == n_before + counters["n_cloned"] + counters["n_split"]
           * (dcfg.split_children - 1) - counters["n_pruned"],
@@ -2173,7 +2005,7 @@ def checked_round(tag, params, opt, dstate, extent, dcfg, seed, card):
         f"mask and counters identical, rewritten rows within {worst:.3e} of "
         f"their max, moments zeroed in {int((~plan.survivors).sum())} rows "
         f"{card}")
-    return params, opt, dstate, counters, round_ms
+    return params, opt, dstate, counters
 
 
 def check_masked_view(tag, params, active, cam, cfg, card):
@@ -2283,24 +2115,20 @@ def phase7(dev, card):
 
     def batched(first, n):
         nonlocal state, dstate
-        losses, ms = [], []
+        losses = []
         for i in range(first, first + n):
             reset_launches()
-            t0 = time.perf_counter()
             state, dstate, loss, overflow = bstep(state, dstate, views,
                                                   targets)
-            losses.append(float(loss))  # synchronises
-            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
             check(not bool(overflow), f"phase7: batched step {i} overflows")
             check_launches(f"phase7 batched step {i}", read_launches(),
                            **per_step)
             check(not bool(dstate.count[~dstate.active].any()),
                   f"phase7: batched step {i} saw an inactive row")
-        return losses, ms
+        return losses
 
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
-    losses, ms = batched(0, 10)
+    losses = batched(0, 10)
     check(all(map(math.isfinite, losses)), "phase7: non-finite loss")
     check(losses[-1] < losses[0], "phase7: the loss did not fall over the "
                                   "first 10 batched steps")
@@ -2323,7 +2151,7 @@ def phase7(dev, card):
     # [0.004, 0.02], under the default percent_dense x extent (0.03), so
     # the default round only clones
     copies = state_copy(state.params, opt, dstate, dev)
-    params, opt, dstate, counters, _ = checked_round(
+    params, opt, dstate, counters = checked_round(
         "phase7", state.params, opt, dstate, extent, dcfg, 11, tag)
     check(counters["n_cloned"] + counters["n_split"] > 0,
           "phase7: the densify round grew nothing")
@@ -2336,22 +2164,16 @@ def phase7(dev, card):
     check(split_counters["n_split"] > 0, "phase7 split round: nothing split")
     del copies
 
-    losses2, ms2 = batched(10, 10)
+    losses2 = batched(10, 10)
     check(all(map(math.isfinite, losses2)), "phase7: non-finite loss")
-    peak = (torch.cuda.max_memory_allocated(dev) / 2**30 if on_card
-            else float("nan"))
     log(f"phase7: 10 batched steps after the round: losses "
         f"{' '.join(f'{v:.6f}' for v in losses2)} {tag}")
-    log(f"phase7: batched step (B = {n_views}) median of the last 5 "
-        f"{statistics.median(ms2[-5:]):.3f} ms (all 20: "
-        f"{' '.join(f'{v:.3f}' for v in ms + ms2)}); peak memory "
-        f"{peak:.2f} GiB {tag}")
     # the kernels against their plain versions on this path's inputs: one
     # ring view (the plain backward takes seconds) after the round
     check_masked_view("phase7 ring view 1", state.params, dstate.active,
                       cams[1], cfg, tag)
 
-    # one more batched step under the profiler: where its time goes
+    # one more batched step under the profiler: no select_backward
     def one_step():
         nonlocal state, dstate
         state, dstate, loss, _ = bstep(state, dstate, views, targets)
@@ -2361,23 +2183,10 @@ def phase7(dev, card):
     if on_card:
         check(prof.busy_ms is not None and prof.busy_ms > 0,
               "phase7 profile: no device time recorded")
-        log(f"phase7 profile: one batched step {prof.wall_ms:.3f} ms with "
-            f"the profiler on, device busy {prof.busy_ms:.3f} ms: share "
-            f"{prof.busy_share:.3f} {tag}")
-        sums = log_op_sums(f"phase7 profile {tag}", prof)
-        check(sums["select_backward"] == 0,
+        check(select_backward_ms(prof) == 0,
               "phase7 profile: the step ran select_backward")
-    log("phase7 profile: top 12 ops by self device ms (host ms off the "
-        f"card), of {len(prof.ops)} {tag}:")
-    for name, op_ms, calls in prof.ops[:12]:
-        log(f"  {op_ms:9.3f} ms {calls:5d}x  {name[:100]}")
 
-    sync(dev)
-    t0 = time.perf_counter()
     params, opt = reset_opacity(state.params, dstate, dcfg, opt)
-    sync(dev)
-    log(f"phase7: reset_opacity {(time.perf_counter() - t0) * 1e3:.3f} ms "
-        f"{tag}")
 
     dstep = make_densify_train_step(opt, w, h, cfg=cfg)
     view0 = CameraView(*(x[0] for x in views))
@@ -2573,45 +2382,28 @@ def phase8_dataset(scene, work, dev, tag):
 
 class StepProbe:
     """A train CLI step factory whose steps record their kernel launches
-    (the counts' difference around the step) and CUDA-event span."""
+    (the counts' difference around the step)."""
 
     def __init__(self, make):
         self.make = make
         self.launches = []
-        self.events = []
-        self.host = []  # host clock at each step's start and end
 
     def __call__(self, *args, **kw):
-        import torch
-
         step = self.make(*args, **kw)
 
         def probed(*a):
-            t0 = time.perf_counter()
             before = read_launches()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
             out = step(*a)
-            end.record()
             after = read_launches()
             self.launches.append({k: after[k] - before[k] for k in after})
-            self.events.append((start, end))
-            self.host.append((t0, time.perf_counter()))
             return out
 
         return probed
 
-    def step_ms(self):
-        import torch
-
-        torch.cuda.synchronize()
-        return [s.elapsed_time(e) for s, e in self.events]
-
 
 class DensifyProbe:
     """The train CLI's ``densify_step`` with each round's avg NDC gradient
-    quantiles (visible actives, before the round) and its host time."""
+    quantiles (visible actives, before the round)."""
 
     def __init__(self, real):
         self.real = real
@@ -2625,14 +2417,9 @@ class DensifyProbe:
         qs = torch.quantile(avg, torch.tensor(
             [0.5, 0.9, 0.99, 0.999, 1.0], device=avg.device)).tolist()
         above = int((avg > cfg.grad_threshold).sum())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.real(params, opt, dstate, gen, extent, cfg)
-        torch.cuda.synchronize()
         self.rounds.append(dict(visible=int(visible.sum()), quantiles=qs,
-                                above=above, threshold=cfg.grad_threshold,
-                                ms=(time.perf_counter() - t0) * 1e3))
-        return out
+                                above=above, threshold=cfg.grad_threshold))
+        return self.real(params, opt, dstate, gen, extent, cfg)
 
 
 def run_train_cli(tag, argv, main=None, **probes):
@@ -2694,23 +2481,17 @@ def check_exported_ply(tag, path, n_active):
 def phase8_train(root, work, dev, tag):
     """8b and 8c: production training through the CLI from the COLMAP
     points, then a resume from its last checkpoint."""
-    import torch
-
     from luisacomputegaussiansplatting_tpu_torch.apps import train_cli
 
     out_dir = os.path.join(work, "train")
     argv = p8_train_argv(root, out_dir, dev)
     steps = StepProbe(train_cli.make_batched_train_step)
     rounds = DensifyProbe(train_cli.densify_step)
-    torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    t0 = time.perf_counter()
     rc, out, err = run_train_cli("phase8b", argv + ["--iters", "60"],
                                  make_batched_train_step=steps,
                                  densify_step=rounds)
-    t_end = time.perf_counter()
     total = read_launches()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     check(rc == 0, f"phase8b: train_cli returned {rc}")
     logs = {int(m[0]): m for m in LOG_RE.findall(out)}
     check(sorted(logs) == [10, 20, 30, 40, 50, 60],
@@ -2737,18 +2518,9 @@ def phase8_train(root, work, dev, tag):
     check(not bad, f"phase8b: steps {bad} launched other than {per_step}")
     for k in per_step:
         check(total[k] > 0, f"phase8b: {k} never launched")
-    ms = steps.step_ms()
     n_final = int(logs[60][3])
-    first, last = steps.host[0][0], steps.host[-1][1]
     log(f"phase8b: 60 steps (B = 4, capacity {P8_CAPACITY}, from "
-        f"{P8_POINTS} COLMAP points, {P8_RES[0]}x{P8_RES[1]}): CLI wall "
-        f"{t_end - t0:.2f} s = set-up {first - t0:.2f} (dataset, init) + "
-        f"loop {last - first:.2f} (steps, rounds, evals, checkpoints) + "
-        f"tail {t_end - last:.2f} (export, final eval); "
-        f"{logs[60][4]} it/s at step 60; step "
-        f"median {statistics.median(ms):.3f} ms by CUDA events (first "
-        f"{ms[0]:.3f}, after the rounds {statistics.median(ms[40:]):.3f}); "
-        f"peak memory {peak:.2f} GiB {tag}")
+        f"{P8_POINTS} COLMAP points, {P8_RES[0]}x{P8_RES[1]}) {tag}")
     log(f"phase8b: loss {' '.join(f'{k}:{v:.5f}' for k, v in loss.items())}; "
         f"view-0 PSNR at 20/40/60 {psnr}; actives {actives} {tag}")
     log(f"phase8b: launches over the run {total}; exactly {per_step} "
@@ -2756,7 +2528,7 @@ def phase8_train(root, work, dev, tag):
     for r, p in zip(rnds, rounds.rounds):
         q = p["quantiles"]
         log(f"phase8b round at {r[0]}: +{r[1]} cloned +{r[2]} split "
-            f"-{r[3]} pruned -> {r[4]}; {p['ms']:.3f} ms; avg NDC grad of "
+            f"-{r[3]} pruned -> {r[4]}; avg NDC grad of "
             f"{p['visible']} visible actives: p50 {q[0]:.3e} p90 {q[1]:.3e} "
             f"p99 {q[2]:.3e} p99.9 {q[3]:.3e} max {q[4]:.3e}; above "
             f"{p['threshold']:g}: {p['above']} {tag}")
@@ -2819,43 +2591,10 @@ def phase8_defaults(root, data, work, dev, tag):
         f"{max_pairs} grew to {', '.join(grows)}; launches {got} {tag}")
 
 
-def timed_viewer_class():
-    """A ``ViewerServer`` whose ``render_jpeg`` records each request's
-    parts in ``parts``: the render (CUDA events), the device-to-host copy
-    with the flip and the uint8 cast, and the JPEG encode (host clock)."""
-    import torch
-
-    from luisacomputegaussiansplatting_tpu_torch.apps.viewer import ViewerServer
-
-    class TimedViewer(ViewerServer):
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            self.parts = []
-
-        def render_jpeg(self, pos, front, up, fov, bg):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with self._lock:
-                start.record()
-                img = self.render_frame(pos, front, up, fov, bg)
-                end.record()
-                end.synchronize()
-                t1 = time.perf_counter()
-                hwc = self.frame_to_hwc(img)
-                t2 = time.perf_counter()
-            jpeg = self.encode_jpeg(hwc)
-            t3 = time.perf_counter()
-            self.parts.append((start.elapsed_time(end), (t2 - t1) * 1e3,
-                               (t3 - t2) * 1e3))
-            return jpeg
-
-    return TimedViewer
-
-
 def phase8_viewer(scene, dev, tag):
     """8e: the viewer on the 2M bench scene at its defaults, served over
-    loopback at 1280x720 and 1920x1080: 20 frames on a ring each, their
-    latency in four parts, each frame against ``render_view``."""
+    loopback at 1280x720 and 1920x1080: 20 frames on a ring each, each
+    frame against ``render_view``, a malformed query answered 400."""
     import threading
     import urllib.error
     import urllib.request
@@ -2866,7 +2605,7 @@ def phase8_viewer(scene, dev, tag):
     from PIL import Image
 
     from luisacomputegaussiansplatting_tpu_torch import RenderConfig, look_at_camera
-    from luisacomputegaussiansplatting_tpu_torch.apps.viewer import make_handler
+    from luisacomputegaussiansplatting_tpu_torch.apps.viewer import ViewerServer, make_handler
     from luisacomputegaussiansplatting_tpu_torch.ops.render import render_view
 
     # the viewer's defaults (apps/viewer.py main) at max_pairs 16M
@@ -2879,13 +2618,11 @@ def phase8_viewer(scene, dev, tag):
     poses = [(p, tuple(-np.asarray(p) / np.linalg.norm(p)), (0.0, 0.0, 1.0))
              for p in ring]
     for w, h in P8_VIEWER_RES:
-        srv = timed_viewer_class()(
+        srv = ViewerServer(
             scene, w, h, cfg, name="bench 2M", init_pos=start,
             init_target=(0.0, 0.0, 0.0), world_up=(0.0, 0.0, 1.0), fov=P8_FOV,
             device=dev)
-        t0 = time.perf_counter()
         srv.warmup()
-        warm_ms = (time.perf_counter() - t0) * 1e3
         with torch.no_grad():
             for pos, front, up in poses:
                 _, aux = render_view(*srv.scene_args,
@@ -2902,16 +2639,14 @@ def phase8_viewer(scene, dev, tag):
                 check(r.status == 200 and b"lcgs-tpu viewer" in r.read(),
                       "phase8e: no page")
             reset_launches()
-            total_ms, frames = [], []
+            frames = []
             for pos, front, up in poses:
                 q = (f"pos={','.join(map(str, pos))}&front="
                      f"{','.join(map(str, front))}&up=0,0,1&fov={P8_FOV}"
                      "&bg=%23000000")
-                t0 = time.perf_counter()
                 with urllib.request.urlopen(f"{url}/frame?{q}",
                                             timeout=60) as r:
                     body = r.read()
-                total_ms.append((time.perf_counter() - t0) * 1e3)
                 check(r.headers["Content-Type"] == "image/jpeg",
                       "phase8e: not a JPEG")
                 frames.append(body)
@@ -2926,14 +2661,10 @@ def phase8_viewer(scene, dev, tag):
             httpd.shutdown()
             httpd.server_close()
             thread.join(timeout=30)
-        check(len(srv.parts) == len(poses), "phase8e: requests not timed")
         check(launches["expand"] == len(poses)
               and launches["rasterize_vpu"] == len(poses)
               and launches["projection_forward"] == len(poses),
               f"phase8e: launches {launches}")
-        render, d2h, jpeg = (list(x) for x in zip(*srv.parts))
-        rest = [t - r - c - j for t, r, c, j in zip(total_ms, render, d2h,
-                                                     jpeg)]
         psnrs = []
         for (pos, front, up), body in zip(poses, frames):
             got = np.asarray(Image.open(io.BytesIO(body)), np.float64)
@@ -2942,17 +2673,10 @@ def phase8_viewer(scene, dev, tag):
             mse = float(np.mean((got - want) ** 2))
             psnrs.append(10.0 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
         check(min(psnrs) >= 35.0, f"phase8e {w}x{h}: PSNR {min(psnrs):.2f}")
-        med = statistics.median
-        log(f"phase8e {w}x{h}: {len(poses)} frames over loopback, median ms: "
-            f"request {med(total_ms):.3f} = render {med(render):.3f} (CUDA "
-            f"events) + copy/flip/cast {med(d2h):.3f} + JPEG "
-            f"{med(jpeg):.3f} + HTTP/parsing {med(rest):.3f}; first frame "
-            f"(kernel build, warm-up) {warm_ms:.1f} ms; JPEG "
-            f"{statistics.mean(map(len, frames)) / 1024:.0f} KiB; served vs "
+        log(f"phase8e {w}x{h}: {len(poses)} frames over loopback; JPEG "
+            f"{sum(map(len, frames)) / len(frames) / 1024:.0f} KiB; served vs "
             f"render_view PSNR min {min(psnrs):.2f} dB; launches {launches} "
             f"{tag}")
-        log(f"phase8e {w}x{h}: request ms "
-            f"{' '.join(f'{v:.2f}' for v in total_ms)}")
 
 
 def phase8(dev, card):
@@ -2980,7 +2704,6 @@ def phase8(dev, card):
 
 #: phase 9: the production frame's tile grid (60 x 34 tiles of 32) in bands
 P9_BANDS = 4
-P9_REPS = 10
 P9_STEPS = 5
 #: phase 9c: ranks sharing the one card, each its quarter of the 2M scene
 P9_RANKS = 4
@@ -3001,16 +2724,6 @@ def p9_config(dev, shrink=None):
         **(P9_SHRINK if shrink is None else shrink))
 
 
-def p9_timed(fn, dev):
-    """(result, milliseconds) of one run: CUDA events on the card, the host
-    clock in a CPU rehearsal."""
-    if dev.type == "cuda":
-        return timed_once(fn)
-    t0 = time.perf_counter()
-    out = fn()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def band_blend_diff(ck, tk, cp, tp):
     """(max |diff|, pixels over TOL, pixels) between two blends of a band's
     tiles, over colour and T (pixels past the image are 0 in both)."""
@@ -3026,8 +2739,7 @@ def phase9a(scene, cam, cfg):
     """K2 and K3, vpu and mxu, on each band of the production frame's ranges
     at its first global tile: against their plain versions with the same
     offset, and equal bit for bit to the whole-frame blend's tiles (K2) and
-    to the whole-frame backward's slots (K3). Returns the kernels-line
-    records of band 1's mxu blends (its time beside its plain version's)."""
+    to the whole-frame backward's slots (K3)."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward, rasterize_forward
@@ -3038,7 +2750,6 @@ def phase9a(scene, cam, cfg):
     on_card = payload.is_cuda
     rows = -(-gy // P9_BANDS)
     fields = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b")
-    out = {}
     for blend in ("vpu", "mxu"):
         bcfg = dataclasses.replace(cfg, blend_quad=blend)
         ranges = (binned.tile_starts, binned.tile_counts)
@@ -3081,58 +2792,11 @@ def phase9a(scene, cam, cfg):
                 dp = rasterize_backward_reference(
                     payload, *band, residual[lo:hi], gx, w, h, bcfg,
                     tile_offset=lo)
-                b3 = check_fields(tag, "d_payload", dk.t(), dp.t(), fields,
-                                  rows=keep)
-            if d == 1 and blend == "mxu":
-                out = dict(band=band, lo=lo, residual=residual[lo:hi],
-                           k2_err=max_d[0], k3_err=float(
-                               (dk[:, keep] - dp[:, keep]).abs().max()),
-                           k3_rel=b3)
+                check_fields(tag, "d_payload", dk.t(), dp.t(), fields,
+                             rows=keep)
         log(f"phase9a {blend}: {P9_BANDS} bands of {rows} tile rows, K2 and "
             "K3 at each band's offset equal the whole frame's bits and "
             "their plain versions")
-    # band 1's mxu kernels timed beside their plain versions, with bounds
-    band, lo, res = out["band"], out["lo"], out["residual"]
-    reps = 5
-    with torch.no_grad():
-        k2_ms = cuda_ms(lambda: rasterize_forward(
-            payload, *band, gx, w, h, cfg, tile_offset=lo), reps)
-        k2_plain = cuda_ms(lambda: rasterize_reference(
-            payload, *band, gx, w, h, cfg, tile_offset=lo), 2)
-        k3_ms = cuda_ms(lambda: rasterize_backward(
-            payload, *band, res, gx, w, h, cfg, tile_offset=lo), reps)
-        k3_plain = cuda_ms(lambda: rasterize_backward_reference(
-            payload, *band, res, gx, w, h, cfg, tile_offset=lo), 2)
-        evaluated, applied = pair_counts(payload, *band, gx, w, h, cfg,
-                                         tile_offset=lo)
-    nt = band[0].shape[0]
-    pix = cfg.tile_wh[0] * cfg.tile_wh[1]
-    used = int(band[1].sum())
-    k2_bound = bound(used * 9 * 4 + nt * 8 + nt * pix * 16,
-                     evaluated * OPS_PER_PAIR["mxu"]
-                     + applied * OPS_PER_APPLIED["forward"])
-    k3_bound = bound(used * 9 * 4 * 2 + nt * pix * 32 + nt * 8,
-                     evaluated * OPS_PER_PAIR["mxu"]
-                     + applied * OPS_PER_APPLIED["backward"])
-    log(f"phase9a band 1 (offset {lo}, {nt} tiles, {used} entries): mxu "
-        f"blend {k2_ms:.3f} ms (plain {k2_plain:.3f}, bound "
-        f"{k2_bound[0]:.3f} {k2_bound[1]}); mxu backward blend "
-        f"{k3_ms:.3f} ms (plain {k3_plain:.3f}, bound {k3_bound[0]:.3f} "
-        f"{k3_bound[1]}); pairs evaluated {evaluated} applied {applied}")
-    return [
-        {"name": "rasterize_forward_mxu_band", "route": "cuda",
-         "source": f"{PKG}/rasterize.cu",
-         "replaces": f"{JAX_OPS}/rasterize_pallas.py:282",
-         "max_abs_err": out["k2_err"], "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None},
-        {"name": "rasterize_backward_mxu_band", "route": "cuda",
-         "source": f"{PKG}/rasterize_backward.cu",
-         "replaces": f"{JAX_OPS}/rasterize_pallas.py:448",
-         "max_abs_err": out["k3_err"], "ms": k3_ms, "plain_ms": k3_plain,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None},
-    ]
 
 
 def p9_frame(shard, cam, mesh, cfg, scfg):
@@ -3148,46 +2812,13 @@ def p9_frame(shard, cam, mesh, cfg, scfg):
     return band, aux, grads
 
 
-#: the autograd Functions of the sharded frame, whose backwards a profile
-#: reads beside the forward's ``render_sharded.<stage>`` ranges
-P9_FUNCTIONS = ("_TakeTableRows", "_SliceBuckets", "_ExchangeRows",
-                "_PermuteRows", "_PackGather", "_RasterizeTiles")
-
-
-def p9_stage_profile(fn, dev):
-    """[(stage, ms)] of one profiled call of ``fn`` (a sharded frame): the
-    forward's ``render_sharded.<stage>`` ranges and the backwards of the
-    exchange's Functions, each with the device time of the kernels under
-    it (host time in a CPU rehearsal)."""
+def check_sharded_k1_k4(scene, cam, cfg, scfg, n):
+    """K1 at the sharded frame's shapes (the band-padded grid) bit for bit
+    against the plain expansion, and K4 f32 on its stream's ids (the
+    tile-sorted local entries, stably sorted by id) with rows of the
+    frame's size within SUM_TOL of its plain version."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        sync(dev)
-    out = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue  # the ranges' spans on the device timeline
-        name = e.key.replace("autograd::engine::evaluate_function: ", "bwd ")
-        if e.key.startswith("render_sharded.") or (
-                name.startswith("bwd ")
-                and name[4:].removesuffix("Backward") in P9_FUNCTIONS):
-            total = e.device_time_total if dev.type == "cuda" else e.cpu_time_total
-            out.append((name, total / 1e3))
-    return out
-
-
-def p9_sharded_k1_k4(scene, cam, cfg, scfg, n):
-    """K1 at the sharded frame's shapes (the band-padded grid) and K4 f32 on
-    its stream's ids (the tile-sorted local entries, stably sorted by id)
-    with rows of the frame's size: times, plain times, bounds, errors."""
-    import torch
-
-    from luisacomputegaussiansplatting_tpu_torch.ops.binning import expand_entries
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel
     from luisacomputegaussiansplatting_tpu_torch.ops.projection import project_gaussians
     from luisacomputegaussiansplatting_tpu_torch.ops.segsum import segment_sum_kernel, segment_sum_reference
     from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import band_layout
@@ -3195,20 +2826,11 @@ def p9_sharded_k1_k4(scene, cam, cfg, scfg, n):
     lay = band_layout(cam.width, cam.height, cfg, 1)
     nt = lay.tiles_per_dev
     l_loc = scfg.max_pairs_local
-    cull_op = cull_opacity(scene, cfg)
-    reps = 5
     with torch.no_grad():
         proj = project_gaussians(scene.means, scene.scales, scene.quats, cam,
                                  cfg)
-        k, k1_err = compare_expansion(proj, lay.grid_x, nt, l_loc, cull_op,
-                                      cfg.tile_wh, cfg)
-        aabb = int(k[3])
-        k1_ms = cuda_ms(lambda: expand_entries_kernel(
-            proj, lay.grid_x, nt, l_loc, cull_op, cfg.tile_wh,
-            cfg.alpha_min), reps)
-        k1_plain = cuda_ms(lambda: expand_entries(
-            proj, lay.grid_x, nt, l_loc, cull_op, cfg.tile_wh,
-            cfg.alpha_min), reps)
+        k, _ = compare_expansion(proj, lay.grid_x, nt, l_loc,
+                                 cull_opacity(scene, cfg), cfg.tile_wh, cfg)
         _t, order = torch.sort(k[0], stable=False)
         gid = k[2][order]
         key = torch.where(gid >= 0, gid, torch.full_like(gid, n))
@@ -3218,37 +2840,11 @@ def p9_sharded_k1_k4(scene, cam, cfg, scfg, n):
                            device=gid.device)[perm]
         got = segment_sum_kernel(sorted_key, rows, n, "f32")
         want = segment_sum_reference(sorted_key, rows, n, "f32")
-        k4_err, _rel = check_sums("phase9b segsum f32", got, want)
-        k4_ms = cuda_ms(lambda: segment_sum_kernel(sorted_key, rows, n,
-                                                   "f32"), reps)
-        k4_plain = cuda_ms(lambda: segment_sum_reference(
-            sorted_key, rows, n, "f32"), reps)
-        key64 = sorted_key.to(torch.int64)
-        lib_rows = torch.where((sorted_key < n)[:, None], rows, 0.0)
-        acc = torch.zeros((n + 1, 9), device=gid.device)
-        k4_lib = cuda_ms(lambda: acc.index_add_(0, key64, lib_rows), reps)
-        n_valid = int((sorted_key < n).sum())
-    k1_bound = bound(n * (28 + 24) + l_loc * 12, aabb * 40)
-    k4_bound = bound(n_valid * (9 * 4 + 4) + n * 9 * 4, n_valid * 9)
+        _, rel = check_sums("phase9b segsum f32", got, want)
     log(f"phase9b: K1 at the band-padded grid ({nt} tiles, max_pairs_local "
-        f"{l_loc}, AABB slots {aabb}) {k1_ms:.3f} ms (plain {k1_plain:.3f}, "
-        f"bound {k1_bound[0]:.3f} {k1_bound[1]}); K4 f32 on the frame's ids "
-        f"{k4_ms:.3f} ms (plain {k4_plain:.3f}, index_add_ {k4_lib:.3f}, "
-        f"bound {k4_bound[0]:.3f} {k4_bound[1]}), rows summed {n_valid}")
-    return [
-        {"name": "expand_entries_sharded", "route": "cuda",
-         "source": f"{PKG}/expand.cu",
-         "replaces": f"{JAX_OPS}/expand_pallas.py:137",
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": None},
-        {"name": "segment_sum_f32_sharded", "route": "cuda",
-         "source": f"{PKG}/segsum.cu",
-         "replaces": f"{JAX_OPS}/segsum.py:46",
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-         "library_ms": k4_lib},
-    ]
+        f"{l_loc}, AABB slots {int(k[3])}) identical to plain; K4 f32 on the "
+        f"frame's ids max|d|/max|sum| {rel:.2e}, rows summed "
+        f"{int((sorted_key < n).sum())}")
 
 
 def backward_scatter_check(tag, fn):
@@ -3284,8 +2880,8 @@ def p9_train(tag, mesh, cams, scene, cfg, scfg, dev, steps):
     opacity logits lowered by 1, towards the full scene's renders of
     ``cams``), the first under the profiler, whose backward must run no
     scatter-add (``backward_scatter_check``), then one sharded densify
-    round. Returns (losses, ms per step, overflow seen, launches of the
-    first step, the round's counters)."""
+    round. Returns (losses, overflow seen, launches of the first step, the
+    round's counters)."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.models import DensifyConfig, DensifyState, init_densify_state, init_train_state
@@ -3316,37 +2912,33 @@ def p9_train(tag, mesh, cams, scene, cfg, scfg, dev, steps):
     views = CameraView(*(torch.stack(x) for x in zip(*views)))
     padded = pad(targets)
     del targets
-    losses, ms, over, first = [], [], False, None
+    losses, over, first = [], False, None
     for i in range(steps):
         reset_launches()
-        t0 = time.perf_counter()
         if i == 0:
             (state, dstate, loss, ov), _ = backward_scatter_check(
                 f"{tag} step 0", lambda: step(state, dstate, views, padded))
         else:
             state, dstate, loss, ov = step(state, dstate, views, padded)
-        losses.append(float(loss))  # synchronises
-        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
         over = over or bool(ov)
         if i == 0:
             first = read_launches()
     gen = torch.Generator(device=dev).manual_seed(0)
     _p, opt, dstate, info = densify_sharded(
         state.params, opt, dstate, gen, 3.0, DensifyConfig(), mesh)
-    log(f"{tag}: losses {' '.join(f'{v:.6f}' for v in losses)}; ms per "
-        f"step median {statistics.median(ms):.3f} (all: "
-        f"{' '.join(f'{v:.3f}' for v in ms)}); densify round: "
-        f"+{int(info.n_cloned)} cloned +{int(info.n_split)} split "
+    log(f"{tag}: losses {' '.join(f'{v:.6f}' for v in losses)}; densify "
+        f"round: +{int(info.n_cloned)} cloned +{int(info.n_split)} split "
         f"-{int(info.n_pruned)} pruned")
-    return losses, ms, over, first, info
+    return losses, over, first, info
 
 
 def phase9b(scene, cam, cfg, dev, tmp):
     """World size 1 in this process (NCCL on the card): the sharded frame
-    against the single-device frame, its launches, times and peak memory;
-    then sharded training on a 1x1 mesh and a sharded densify round.
-    Returns (kernels-line records, the frame's launches, the frame's image
-    and gradients for 9c)."""
+    against the single-device frame and its launches, K1 and K4 at its
+    shapes against their plain versions; then sharded training on a 1x1
+    mesh and a sharded densify round. Returns the frame's image and
+    gradients for 9c."""
     import torch
     import torch.distributed as dist
 
@@ -3366,14 +2958,10 @@ def phase9b(scene, cam, cfg, dev, tmp):
         leaves = grad_leaves(scene)
 
         # the main path: one sharded frame, the launches over exactly it
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
         band, aux, grads = p9_frame(leaves, cam, mesh, cfg, scfg)
         sync(dev)
-        launches = read_launches()
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
-        check_launches("phase9b sharded frame", launches, expand=1,
+        check_launches("phase9b sharded frame", read_launches(), expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
                        segsum_f32=1, sh_forward=1, sh_backward=1,
                        projection_forward=1, projection_backward=1)
@@ -3399,32 +2987,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
                          b.reshape(-1, 1), [name])
         del leaves1, img1, aux1, grads1, band
 
-        # reps of both frames, in turns, each synchronised
-        def sharded():
-            return p9_frame(leaves, cam, mesh, cfg, scfg)[2][0]
-
-        def single():
-            img, _ = render_aux(*leaves, cam, cfg=cfg)
-            return torch.autograd.grad(img.sum(), leaves)[0]
-
-        times = {"sharded": [], "single": []}
-        for _ in range(P9_REPS):
-            for key, fn in (("single", single), ("sharded", sharded)):
-                times[key].append(p9_timed(fn, dev)[1])
-        med = {k: statistics.median(v) for k, v in times.items()}
-        log(f"phase9b: fwd+bwd frame median of {P9_REPS}: sharded (world "
-            f"size 1) {med['sharded']:.3f} ms, single-device "
-            f"{med['single']:.3f} ms, the exchange path "
-            f"{med['sharded'] - med['single']:.3f} ms; peak memory of the "
-            f"sharded frame {peak if peak is None else round(peak, 3)} GiB "
-            f"(all sharded: {' '.join(f'{v:.3f}' for v in times['sharded'])}"
-            f"; single: {' '.join(f'{v:.3f}' for v in times['single'])})")
-        stages = p9_stage_profile(sharded, dev)
-        log("phase9b: one profiled sharded frame, ms of device time under "
-            "each stage: " + "; ".join(f"{k} {v:.3f}" for k, v in stages))
-        records = p9_sharded_k1_k4(scene, cam, cfg, scfg, n)
-        for r, k in zip(records, ("expand", "segsum_f32")):
-            r["launches"] = launches[k]
+        check_sharded_k1_k4(scene, cam, cfg, scfg, n)
         ref = {"image": image.cpu(),
                "grads": [g.detach().cpu() for g in grads],
                "num_rendered": int(aux.num_rendered)}
@@ -3432,7 +2995,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
 
         # training on a 1x1 mesh, then a sharded densify round
         mesh2 = make_mesh((1, 1), ("data", "gs"), device=dev.type)
-        losses, _ms, over, first, _info = p9_train(
+        losses, over, first, _info = p9_train(
             "phase9b training (1x1 mesh)", mesh2, [cam], scene, cfg, scfg,
             dev, P9_STEPS)
         check_launches("phase9b training step", first, expand=1,
@@ -3444,7 +3007,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
               "phase9b training: the loss did not fall")
     finally:
         dist.destroy_process_group()
-    return records, launches, ref
+    return ref
 
 
 def p9c_rank(rank, tmp, dev_type, shrink, rank_pairs):
@@ -3458,7 +3021,6 @@ def p9c_rank(rank, tmp, dev_type, shrink, rank_pairs):
     sys.path.insert(0, ROOT)
     from luisacomputegaussiansplatting_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
     from luisacomputegaussiansplatting_tpu_torch.parallel.render_sharded import ShardedRenderConfig, gather_image
-    from luisacomputegaussiansplatting_tpu_torch.parallel.train_sharded import exchange_band_halos
 
     dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
     if dev.type == "cuda":
@@ -3474,21 +3036,11 @@ def p9c_rank(rank, tmp, dev_type, shrink, rank_pairs):
                  .requires_grad_(True) for x in scene.render_args()]
         mesh = make_mesh((P9_RANKS,), ("gs",), device=dev.type)
         scfg = ShardedRenderConfig(max_pairs_local=rank_pairs)
-        times = []
-        for _ in range(3):  # the first builds nothing (9b did) but warms up
-            reset_launches()
-            (band, aux, grads), ms = p9_timed(
-                lambda: p9_frame(shard, cam, mesh, cfg, scfg), dev)
-            times.append(ms)
+        reset_launches()
+        band, aux, grads = p9_frame(shard, cam, mesh, cfg, scfg)
         launches = read_launches()
         image = gather_image(band, mesh, cam.width, cam.height)
         group = mesh.get_group("gs")
-        # the SSIM halo swap of a training step: prediction and target of
-        # one band (6 channels) with its neighbours
-        x = torch.rand((6, band.shape[1], band.shape[2]), device=dev)
-        halo_ms = [p9_timed(lambda: exchange_band_halos(x, group, rank,
-                                                        P9_RANKS), dev)[1]
-                   for _ in range(5)]
         full = []
         for gr in grads:
             parts = [torch.empty_like(gr) for _ in range(P9_RANKS)]
@@ -3498,18 +3050,17 @@ def p9c_rank(rank, tmp, dev_type, shrink, rank_pairs):
             torch.save({"image": image.cpu(), "grads": full,
                         "overflow": bool(aux.overflow),
                         "num_rendered": int(aux.num_rendered),
-                        "frame_ms": times, "launches": launches,
-                        "halo_ms": halo_ms, "band": tuple(x.shape)},
+                        "launches": launches},
                        os.path.join(tmp, "p9c_frame.pt"))
         del band, grads, full, shard
         mesh2 = make_mesh((2, P9_RANKS // 2), ("data", "gs"), device=dev.type)
         cams = ring_cameras(cam, 2)
-        losses, ms, over, first, _info = p9_train(
+        losses, over, first, _info = p9_train(
             f"phase9c training rank {rank} (2x2 mesh)", mesh2, cams, scene,
             cfg, scfg, dev, P9_STEPS)
         if rank == 0:
             with open(os.path.join(tmp, "p9c_train.json"), "w") as f:
-                json.dump({"losses": losses, "ms": ms, "overflow": over,
+                json.dump({"losses": losses, "overflow": over,
                            "launches": first}, f)
     finally:
         dist.destroy_process_group()
@@ -3528,11 +3079,8 @@ def phase9c(ref, dev, tmp):
     img_d = float((got["image"] - ref["image"]).abs().max())
     log(f"phase9c: {P9_RANKS} ranks on one card (gloo): image vs 9b max|d|="
         f"{img_d:.3e}; num_rendered {got['num_rendered']} (9b: "
-        f"{ref['num_rendered']}); overflow {got['overflow']}; sharded frame "
-        f"ms (rank 0, the ranks share the card and exchange through the "
-        f"host): {' '.join(f'{v:.3f}' for v in got['frame_ms'])}; rank 0 "
-        f"launches {got['launches']}; a halo swap of a {got['band']} band "
-        f"ms {' '.join(f'{v:.3f}' for v in got['halo_ms'])}")
+        f"{ref['num_rendered']}); overflow {got['overflow']}; rank 0 "
+        f"launches {got['launches']}")
     check(not got["overflow"], "phase9c: overflow")
     check(img_d <= 2e-5, "phase9c: the image differs from 9b's")
     names = ("means", "scales", "quats", "opacities", "sh")
@@ -3542,9 +3090,8 @@ def phase9c(ref, dev, tmp):
     with open(os.path.join(tmp, "p9c_train.json")) as f:
         tr = json.load(f)
     log(f"phase9c training (2x2 mesh, rank 0): losses "
-        f"{' '.join(f'{v:.6f}' for v in tr['losses'])}; ms per step "
-        f"{' '.join(f'{v:.3f}' for v in tr['ms'])}; launches of the first "
-        f"step {tr['launches']}")
+        f"{' '.join(f'{v:.6f}' for v in tr['losses'])}; launches of the "
+        f"first step {tr['launches']}")
     check(not tr["overflow"], "phase9c training: overflow")
     check(all(map(math.isfinite, tr["losses"]))
           and tr["losses"][-1] < tr["losses"][0],
@@ -3559,19 +3106,14 @@ def phase9(dev, card):
 
     t0 = time.perf_counter()
     scene, cam, cfg, _ = p9_config(dev)
-    records = phase9a(scene, cam, cfg)
+    phase9a(scene, cam, cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        rec, launches, ref = phase9b(scene, cam, cfg, dev, tmp)
-        # the band kernels' launches: those of 9b's sharded frame
-        records[0]["launches"] = launches["rasterize_mxu"]
-        records[1]["launches"] = launches["rasterize_backward_mxu"]
-        records += rec
+        ref = phase9b(scene, cam, cfg, dev, tmp)
         del scene
         t1 = time.perf_counter()
         phase9c(ref, dev, tmp)
     log(f"phase9: 9a+9b {t1 - t0:.1f} s, 9c {time.perf_counter() - t1:.1f} s "
         f"({card})")
-    return records
 
 
 # ---- phase 10: the real-scene quality proof --------------------------------
@@ -3653,9 +3195,11 @@ def p10_report(root):
 
 def phase10_train(root, res, dev, tag, flags, ckpt_every):
     """The train stage in this process (the proof's ``main``), each step's
-    kernel launches and CUDA-event span recorded, each densify round's
-    gradient quantiles; then the four kernels against their plain versions
-    on the trained state and training view 0."""
+    kernel launches recorded, each densify round's gradient quantiles, step
+    P10_PROFILE_STEP profiled (on the card it must run no
+    select_backward); then the four kernels against their plain versions
+    on the trained state and training view 0. Returns the run's numbers
+    for the report."""
     from luisacomputegaussiansplatting_tpu_torch.apps import train_cli
     from luisacomputegaussiansplatting_tpu_torch.io.dataset import load_nerf_synthetic
     from luisacomputegaussiansplatting_tpu_torch.scripts import real_scene_proof as proof
@@ -3717,14 +3261,8 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
           f"phase10 train: checkpoints {ckpts}")
     final = FINAL_RE.search(out)
     check(final is not None, "phase10 train: no final line")
-    ms = steps.step_ms()
-    first, last = steps.host[0][0], steps.host[-1][1]
     log(f"phase10 train: {iters} steps (2 views of {res}x{res} a step, "
-        f"capacity {capacity}) in {secs:.2f} s = set-up {first - t0:.2f} "
-        f"+ loop {last - first:.2f} + tail {t0 + secs - last:.2f}; "
-        f"{logs[iters][4]} it/s at step {iters}; step median "
-        f"{statistics.median(ms):.3f} ms by CUDA events (first "
-        f"{ms[0]:.3f}, p90 {sorted(ms)[int(0.9 * len(ms))]:.3f}) {tag}")
+        f"capacity {capacity}) in {secs:.2f} s {tag}")
     shown = " ".join(f"{k}:{v:.5f}" for k, v in loss.items()
                      if k % 500 == 0 or k == 50)
     log(f"phase10 train: loss {shown}; final {final[1]}, view-0 train PSNR "
@@ -3734,7 +3272,7 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     for r, p in zip(rnds, rounds.rounds):
         q = p["quantiles"]
         log(f"phase10 round at {r[0]}: +{r[1]} cloned +{r[2]} split "
-            f"-{r[3]} pruned -> {r[4]}; {p['ms']:.3f} ms; avg NDC grad of "
+            f"-{r[3]} pruned -> {r[4]}; avg NDC grad of "
             f"{p['visible']} visible actives: p50 {q[0]:.3e} p90 {q[1]:.3e} "
             f"p99 {q[2]:.3e} max {q[4]:.3e}; above {p['threshold']:g}: "
             f"{p['above']}")
@@ -3747,24 +3285,14 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     check_masked_view("phase10 train view 0", state.params, dstate.active,
                       cam, steps.cfg, tag)
     prof = steps.profile
-    busy = None
     if prof is not None and dev.type == "cuda":
         check(prof.busy_ms is not None and prof.busy_ms > 0,
               "phase10 profile: no device time recorded")
-        busy = prof.busy_ms
-        log(f"phase10 profile: step {P10_PROFILE_STEP} {prof.wall_ms:.3f} ms "
-            f"with the profiler on, device busy {prof.busy_ms:.3f} ms: share "
-            f"{prof.busy_share:.3f} {tag}")
-    if prof is not None:
-        log(f"phase10 profile: top 10 ops by self device ms (host ms off "
-            f"the card), of {len(prof.ops)} {tag}:")
-        for name, op_ms, calls in prof.ops[:10]:
-            log(f"  {op_ms:9.3f} ms {calls:5d}x  {name[:100]}")
-    return dict(seconds=secs, it_s=float(logs[iters][4]),
-                step_ms_median=statistics.median(ms), actives=actives,
-                final_active=n_final, final_loss=float(final[1]),
-                view0_train_psnr=float(final[2]), checkpoints=ckpts,
-                profiled_step_busy_ms=busy,
+        check(select_backward_ms(prof) == 0,
+              f"phase10 profile: step {P10_PROFILE_STEP} ran select_backward")
+    return dict(seconds=secs, actives=actives, final_active=n_final,
+                final_loss=float(final[1]), view0_train_psnr=float(final[2]),
+                checkpoints=ckpts,
                 loss={k: loss[k] for k in sorted(loss) if k % 500 == 0})
 
 
@@ -3833,79 +3361,40 @@ def sync(dev):
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "sh", "bg")
 
 
-def own_call_profile():
-    """``utils/profiling.call_profile`` of this script's own tree, loaded
-    from its file, so that ``--compare`` profiles every tree with the same
-    code (the module imports only torch at its top)."""
-    import importlib.util
-
-    path = os.path.join(ROOT, "luisacomputegaussiansplatting_tpu_torch",
-                        "utils", "profiling.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke_profiling",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.call_profile
-
-
-def diff_frame_record(scene, cam, cfg, dev, profile):
+def diff_frame_record(scene, cam, cfg, dev):
     """The differentiable frame of phases 5 and 6 (loss = image sum over a
     zero background, backward to the five groups and the background)
     through the tree's ``render_aux``: digests of the image and the six
-    gradients, the median of 5 chained frames after one, the peak memory
-    over them, and one profiled frame's busy ms and op sums."""
+    gradients."""
     import torch
 
     from luisacomputegaussiansplatting_tpu_torch.ops.render import render_aux
 
     leaves = grad_leaves(scene)
-
-    def frame(bg):
-        img, _aux = render_aux(*leaves, cam, bg_color=bg, cfg=cfg)
-        loss = img.sum()
-        return img, loss.detach(), torch.autograd.grad(loss, [*leaves, bg])
-
     bg = torch.zeros(3, device=dev, requires_grad=True)
-    img, val, grads = frame(bg)
+    img, _aux = render_aux(*leaves, cam, bg_color=bg, cfg=cfg)
+    grads = torch.autograd.grad(img.sum(), [*leaves, bg])
     out = {"image": tensor_digest(img)}
     out.update({name: tensor_digest(g) for name, g in zip(GRAD_NAMES, grads)})
-    del img, grads
-    torch.cuda.reset_peak_memory_stats(dev)
-    frames = []
-    for _ in range(5):
-        bg_i = (bg.detach() + val * 1e-20).requires_grad_(True)
-        (_img, val, _g), ms = timed_once(lambda: frame(bg_i))
-        frames.append(ms)
-    del _img, _g
-    out["frame_ms"] = statistics.median(frames)
-    out["frames_ms"] = frames
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    prof = profile(lambda: frame(bg.detach().clone().requires_grad_(True)),
-                   dev)
-    out["busy_ms"] = prof.busy_ms
-    out["op_ms"] = op_sums(prof)
     return out
 
 
-def batched_record(dev, profile, grads_file=None):
-    """Phase 7's batched step (B = 4) from its start through the tree's
-    package: the loss, digests of the six groups' gradients and of the
-    accumulated ``grad_sum`` after the first step, the steps' times and
-    peak memory, one profiled step's busy ms and op sums. With
-    ``grads_file``, the first tree run saves those gradients there and each
-    later one gives each group's max |diff| over the saved max |value|."""
+def batched_record(dev, grads_file=None):
+    """Phase 7's first batched step (B = 4) from its start through the
+    tree's package: digests of the six groups' gradients and of the
+    accumulated ``grad_sum``. With ``grads_file``, the first tree run saves
+    those gradients there and each later one gives each group's max |diff|
+    over the saved max |value|."""
     import torch
 
     _cfg, _cams, views, targets, state, _opt, dstate, bstep = \
         batched_setup(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    state, dstate, loss, overflow = bstep(state, dstate, views, targets)
+    state, dstate, _loss, overflow = bstep(state, dstate, views, targets)
     check(not bool(overflow), "compare: the batched step overflows")
     groups = dict(zip(state.params._fields,
                       (p.grad for p in state.params)))
     groups["grad_sum"] = dstate.grad_sum
-    out = {"loss": float(loss),
-           "digests": {k: tensor_digest(v) for k, v in groups.items()}}
+    out = {"digests": {k: tensor_digest(v) for k, v in groups.items()}}
     if grads_file and os.path.exists(grads_file):
         ref = torch.load(grads_file)
         out["max_rel_to_saved"] = {
@@ -3916,71 +3405,36 @@ def batched_record(dev, profile, grads_file=None):
         torch.save({k: v.detach().cpu() for k, v in groups.items()},
                    grads_file)
         out["saved_to"] = grads_file
-    del groups
-    steps = []
-    for _ in range(4):
-        t0 = time.perf_counter()
-        state, dstate, loss, _ = bstep(state, dstate, views, targets)
-        float(loss)  # synchronises
-        steps.append((time.perf_counter() - t0) * 1e3)
-    out["step_ms"] = statistics.median(steps)
-    out["steps_ms"] = steps
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-
-    def one_step():
-        nonlocal state, dstate
-        state, dstate, step_loss, _ = bstep(state, dstate, views, targets)
-        return float(step_loss)
-
-    prof = profile(one_step, dev)
-    out["busy_ms"] = prof.busy_ms
-    out["op_ms"] = op_sums(prof)
     return out
 
 
 def tree_record(dev, grads_file=None):
-    """K2's and K3's digests (K3 on a seeded residual), K2's device time
-    and the expansion's device times on phase 3's frame (strict: vpu, no
-    cull) and phase 6's (production: mxu, the cull), then on each frame the
-    differentiable frame (``diff_frame_record``), and phase 7's batched
-    step (``batched_record``), through whichever port package is first on
-    ``sys.path``: ``--compare ROOT`` runs it on the tree at ROOT, so that
-    two trees are held to the same bits and timed and profiled by the same
-    code. The expansion's kernel alone is the device time of its wrapper
-    less that of ``saturated_ends``, the prefix sums that a tree's wrapper
-    runs before its launch (this tree's wrapper runs all of them but the
-    saturation, which its kernel does)."""
+    """K2's and K3's digests (K3 on a seeded residual) on phase 3's frame
+    (strict: vpu, no cull) and phase 6's (production: mxu, the cull), the
+    differentiable frame's digests on each (``diff_frame_record``), and
+    phase 7's batched step (``batched_record``), through whichever port
+    package is first on ``sys.path``: ``--compare ROOT`` runs it on the
+    tree at ROOT, so that two trees are held to the same bits by the same
+    code."""
     import torch
 
     import bench_cuda
-    from luisacomputegaussiansplatting_tpu_torch.ops.expand import expand_entries_kernel, saturated_ends
     from luisacomputegaussiansplatting_tpu_torch.ops.rasterize import rasterize_backward, rasterize_forward
 
-    profile = own_call_profile()
     out = {}
     for frame in ("strict", "production"):
         if frame == "strict":
             scene, cam, cfg = headline(dev)
-            proj, (gx, gy), b, payload = bin_and_payload(scene, cam, cfg,
-                                                         expansion="xla")
+            _proj, (gx, _gy), b, payload = bin_and_payload(scene, cam, cfg,
+                                                           expansion="xla")
         else:
             scene, cam, cfg, _ = bench_cuda.scene_camera_config("headline",
                                                                 dev)
-            proj, (gx, gy), b, payload = bin_and_payload(scene, cam, cfg)
-        cull_op = cull_opacity(scene, cfg)
+            _proj, (gx, _gy), b, payload = bin_and_payload(scene, cam, cfg)
         with torch.no_grad():
-
-            def blend():
-                return rasterize_forward(payload, b.tile_starts,
-                                         b.tile_counts, gx, cam.width,
-                                         cam.height, cfg)
-
-            k1 = {"wrapper": device_ms(lambda: expand_entries_kernel(
-                      proj, gx, gx * gy, cfg.max_pairs, cull_op, cfg.tile_wh,
-                      cfg.alpha_min)),
-                  "saturated_ends": device_ms(
-                      lambda: saturated_ends(proj.tiles_touched))}
-            color, trans = blend()
+            color, trans = rasterize_forward(payload, b.tile_starts,
+                                             b.tile_counts, gx, cam.width,
+                                             cam.height, cfg)
             residual = random_residual(color, trans, 9)
             d_payload = rasterize_backward(payload, b.tile_starts,
                                            b.tile_counts, residual, gx,
@@ -3989,14 +3443,11 @@ def tree_record(dev, grads_file=None):
             # never written)
             used = d_payload[:, :used_slots(b)].contiguous()
             out[frame] = {"k2_digest": blend_digest(color, trans),
-                          "k3_digest": blend_digest(used, used[:, :0]),
-                          "k2_device_ms": device_ms(blend),
-                          "k1_device_ms": k1}
-        del proj, b, payload, cull_op, color, trans, residual, d_payload, used
-        out[frame]["diff_frame"] = diff_frame_record(scene, cam, cfg, dev,
-                                                     profile)
+                          "k3_digest": blend_digest(used, used[:, :0])}
+        del _proj, b, payload, color, trans, residual, d_payload, used
+        out[frame]["diff_frame"] = diff_frame_record(scene, cam, cfg, dev)
         del scene
-    out["batched"] = batched_record(dev, profile, grads_file)
+    out["batched"] = batched_record(dev, grads_file)
     return out
 
 
@@ -4008,8 +3459,7 @@ def main(argv):
         return 1
     if (argv[:1] == ["--compare"] and len(argv) in (2, 4)
             and argv[2:3] in ([], ["--grads"])):
-        # the digests, times and op sums only, from the port package of
-        # the tree at argv[1]
+        # the digests only, from the port package of the tree at argv[1]
         sys.path.insert(0, os.path.abspath(argv[1]))
         try:
             record = tree_record(torch.device("cuda:0"),
@@ -4047,7 +3497,7 @@ def main(argv):
         record += phase6(dev)
         phase7(dev, card)
         phase8(dev, card)
-        record += phase9(dev, card)
+        phase9(dev, card)
         phase10(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
