@@ -33,7 +33,12 @@ benchmark's yardstick (``gsbench/work.py``):
      bicycle-cell camera: the eight fields bit for bit (training and render
      calls, the tight radius), gradients within 1e-5 of their max, a
      look-at pose's gradient against the plain version in float64, one
-     launch each way, each way's device ms beside its byte bound;
+     launch each way, each way's device ms beside its byte bound; then K7,
+     the Adam kernel (``phase_adam``), over the six groups of 6M
+     gaussians: three updates against ``torch.optim.Adam``'s foreach
+     update (moments within 4 ulps, parameters within 1e-6 of each group's
+     largest update), one launch a step, its device ms beside its byte
+     bound, the foreach update's ms and ``fused=True``'s;
   2. the render CLI in-process on a 200K-gaussian scene at 1600x1063, then
      on the 2M bench scene from its PLY (the native loader) at 1920x1080
      with the strict defaults and the reference's L (``--max-pairs`` 20M):
@@ -133,7 +138,7 @@ benchmark's yardstick (``gsbench/work.py``):
      1600x1063, 40 views at 800x800 on the interp rig), train in this
      process (the train CLI, 4,000 steps of two views at 200K capacity
      from 30K points, a densify round every 150 steps, a checkpoint every
-     500; K1, K2 vpu, K3 vpu and K4 f32 twice every step; step
+     500; K1, K2 vpu, K3 vpu and K4 f32 twice every step, K7 once; step
      P10_PROFILE_STEP under the profiler, with device time and no
      select_backward), eval in its own
      process (4 held-out poses at 1600x1063: PSNR >= P10_PSNR, SSIM >=
@@ -150,11 +155,12 @@ benchmark's yardstick (``gsbench/work.py``):
 Every phase runs, in order; to rehearse one, import this module and call
 its ``phaseN`` function. Each kernel's record on the ``"kernels"`` line
 holds its device ms (``device_ms``: K1-K4 once on phase 3's or 5's strict
-frame and once on phase 6's production frame, K5 and K6 at 6M), its plain
-(and, for K4, ``index_add_``'s) ms with host issue (``cuda_ms``), and its
+frame and once on phase 6's production frame, K5, K6 and K7 at 6M), its
+plain (for K7 torch's foreach Adam) and library (K4 ``index_add_``, K7
+torch's ``fused=True`` Adam) ms with host issue (``cuda_ms``), and its
 ``bound_ms`` and ``bound_by`` (``kernel_bound``: ``gsbench.work.k1_work``
 ... ``k4_work`` on the frame's counts; K5's and K6's byte and operation
-counts a gaussian beside their phases).
+counts a gaussian and K7's an element beside their phases).
 
 ``--compare ROOT`` prints only one JSON line of digests, computed by the
 port package of the tree at ROOT with this tree's code (to hold another
@@ -284,10 +290,10 @@ def kernel_bound(nbytes, ops):
 
 def kernel_libs():
     from luisacomputegaussiansplatting_tpu_torch.ops import (
-        expand, projection, rasterize, segsum, sh_eval)
+        adam, expand, projection, rasterize, segsum, sh_eval)
 
     return [expand.KERNEL, rasterize.KERNEL, rasterize.BACKWARD_KERNEL,
-            segsum.KERNEL, sh_eval.KERNEL, projection.KERNEL]
+            segsum.KERNEL, sh_eval.KERNEL, projection.KERNEL, adam.KERNEL]
 
 
 def reset_launches():
@@ -1042,6 +1048,104 @@ def phase_projection(dev, n=PROJ_N):
     return records
 
 
+
+#: K7's check: the north star's gaussian count, the six groups' 59 floats a
+#: gaussian (SH degree 3)
+ADAM_N = 6_000_000
+ADAM_SHAPES = ((3,), (3,), (4,), (), (1, 3), (15, 3))
+#: per element: reads the parameter, the gradient and both moments and
+#: writes the parameter and both moments, 4 B each
+ADAM_BYTES = 7 * 4
+#: the moments within ADAM_ULPS float32 ulps of torch's foreach update,
+#: relative; the parameters within ADAM_PARAM_TOL x their group's largest
+#: update (``tests/test_torch_adam.py``'s tolerances)
+ADAM_ULPS = 4
+ADAM_PARAM_TOL = 1e-6
+
+
+def phase_adam(dev, n=ADAM_N):
+    """K7 (``csrc/adam.cu``) over the six groups of ``n`` gaussians: three
+    updates of ``make_optimizer``'s Adam through ``optimizer_step`` (the
+    means learning rate changes every step; 5% of the gradients rounding
+    level) against ``torch.optim.Adam``'s foreach update from the same
+    parameters and gradients: the moments within ADAM_ULPS ulps, the
+    parameters within ADAM_PARAM_TOL x each group's largest update, one
+    launch a step; then K7's device ms beside its byte bound, the foreach
+    update's ms (plain) and ``fused=True``'s (library). Returns the kernel
+    record."""
+    import torch
+
+    from luisacomputegaussiansplatting_tpu_torch.models import trainer
+    from luisacomputegaussiansplatting_tpu_torch.models.gaussians import GaussianParams
+    from luisacomputegaussiansplatting_tpu_torch.ops import adam
+
+    tc = trainer.TrainConfig(lr_means_decay_steps=4)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    start = GaussianParams(*(torch.randn((n, *s), generator=gen, device=dev)
+                             for s in ADAM_SHAPES))
+    elems = sum(p.numel() for p in start)
+    state, opt = trainer.init_train_state(start, tc)
+    lrs = trainer._group_lrs(tc)
+
+    def torch_adam(params, **kw):
+        return torch.optim.Adam(
+            [{"params": [p], "lr": lrs[name], "name": name}
+             for name, p in zip(GaussianParams._fields, params)],
+            betas=(0.9, 0.999), eps=tc.adam_eps, **kw)
+
+    twin_params = [p.clone().requires_grad_(True) for p in start]
+    twin = torch_adam(twin_params, foreach=True)
+    reset_launches()
+    for k in range(3):
+        for p, q in zip(state.params, twin_params):
+            g = torch.randn(p.shape, generator=gen, device=dev)
+            tiny = torch.rand(p.shape, generator=gen, device=dev) < 0.05
+            p.grad = q.grad = torch.where(tiny, g * 1e-12, g)
+        trainer.optimizer_step(opt, tc, k)
+        trainer.optimizer_step(twin, tc, k)
+    torch.cuda.synchronize()
+    check_launches("phase_adam", read_launches(), adam=3)
+    ulp = torch.finfo(torch.float32).eps
+    errs, differ = {}, 0
+    with torch.no_grad():
+        for name, p, q, s in zip(GaussianParams._fields, state.params,
+                                 twin_params, start):
+            a, b = opt.state[p], twin.state[q]
+            check(torch.equal(a["step"], b["step"])
+                  and a["step"].device.type == "cpu",
+                  f"phase_adam: {name}: step {a['step']} against "
+                  f"{b['step']}")
+            for key in ("exp_avg", "exp_avg_sq"):
+                check(bool(((a[key] - b[key]).abs()
+                            <= ADAM_ULPS * ulp * b[key].abs()).all()),
+                      f"phase_adam: {name} {key} past {ADAM_ULPS} ulps")
+                differ += int((a[key] != b[key]).sum())
+            scale = float((q - s).abs().max())
+            errs[name] = float((p - q).abs().max())
+            differ += int((p != q).sum())
+            check(errs[name] <= ADAM_PARAM_TOL * scale,
+                  f"phase_adam: {name} off by {errs[name]} (largest update "
+                  f"{scale})")
+    log(f"phase_adam: 3 steps over {elems} elements: parameters within "
+        f"{ADAM_PARAM_TOL} of their largest update ({errs}); {differ} of "
+        f"{3 * elems} parameter and moment values differ from torch's bits")
+    del start
+
+    ms = device_ms(lambda: trainer.optimizer_step(opt, tc, 3))
+    plain = cuda_ms(lambda: trainer.optimizer_step(twin, tc, 3), 5)
+    del opt, state, twin
+    fused = torch_adam(twin_params, fused=True)
+    library = cuda_ms(fused.step, 5)
+    del fused, twin_params
+    b = kernel_bound(ADAM_BYTES * elems, W.OPS_PER_ADAM_ELEMENT * elems)
+    log(f"phase_adam: K7 at {elems} elements {ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+        f"{100 * b['bound_ms'] / ms:.1f}% of it; foreach {plain:.3f} ms, "
+        f"fused {library:.3f} ms")
+    return [{"name": "adam", "route": "cuda", "source": f"{PKG}/adam.cu",
+             "replaces": None, "launches": 1, "max_abs_err": errs, "ms": ms,
+             "plain_ms": plain, **b, "library_ms": library}]
+
 def run_render_cli(argv):
     """``render_cli.main(argv)`` in-process: (rc, stdout, stderr)."""
     from luisacomputegaussiansplatting_tpu_torch.apps import render_cli
@@ -1558,7 +1662,8 @@ def phase5(dev, ctx):
         losses.append(float(step_loss))
         check(not bool(step_aux.overflow), "phase5 training: overflow")
     check_launches("phase5 training", read_launches(),
-                   **{k: n_steps for k in one}, segsum_f32=n_steps)
+                   **{k: n_steps for k in one}, segsum_f32=n_steps,
+                   adam=n_steps)
     log(f"phase5 training: losses {' '.join(f'{v:.6f}' for v in losses)}")
     check(all(map(math.isfinite, losses)), "phase5 training: non-finite loss")
     check(losses[-1] < losses[0], "phase5 training: the loss did not fall")
@@ -1833,7 +1938,7 @@ def phase6(dev):
                    rasterize_mxu=n_steps, rasterize_backward_mxu=n_steps,
                    segsum_bf16=n_steps, sh_forward=n_steps,
                    sh_backward=n_steps, projection_forward=n_steps,
-                   projection_backward=n_steps)
+                   projection_backward=n_steps, adam=n_steps)
     log(f"phase6 training: losses {' '.join(f'{v:.6f}' for v in losses)}")
     check(all(map(math.isfinite, losses)), "phase6 training: non-finite loss")
     check(losses[-1] < losses[0], "phase6 training: the loss did not fall")
@@ -2110,7 +2215,8 @@ def phase7(dev, card):
     per_step = dict(expand=n_views, rasterize_mxu=n_views,
                     rasterize_backward_mxu=n_views, segsum_bf16=n_views,
                     sh_forward=n_views, sh_backward=n_views,
-                    projection_forward=n_views, projection_backward=n_views)
+                    projection_forward=n_views, projection_backward=n_views,
+                    adam=1)
     tag = f"[{card}]"
 
     def batched(first, n):
@@ -2200,7 +2306,7 @@ def phase7(dev, card):
                        expand=1, rasterize_mxu=1,
                        rasterize_backward_mxu=1, segsum_bf16=1,
                        sh_forward=1, sh_backward=1, projection_forward=1,
-                       projection_backward=1)
+                       projection_backward=1, adam=1)
         check(not bool(aux.radii[~dstate.active].any()),
               f"phase7: densify step {i} drew an inactive row")
     check(all(map(math.isfinite, losses3)), "phase7: non-finite loss")
@@ -2511,7 +2617,7 @@ def phase8_train(root, work, dev, tag):
           "phase8b: overflow")
     per_step = dict(expand=4, rasterize_mxu=4, rasterize_backward_mxu=4,
                     segsum_bf16=4, sh_forward=4, sh_backward=4,
-                    projection_forward=4, projection_backward=4)
+                    projection_forward=4, projection_backward=4, adam=1)
     check(len(steps.launches) == 60, f"phase8b: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
     bad = [i + 1 for i, got in enumerate(steps.launches) if got != want]
@@ -2583,7 +2689,8 @@ def phase8_defaults(root, data, work, dev, tag):
     grows = re.findall(r"\[overflow\] raising max_pairs to (\d+)", err)
     check(len(grows) >= 1, "phase8d: max_pairs never grew")
     for k in ("expand", "rasterize_vpu", "rasterize_backward_vpu",
-              "segsum_f32", "projection_forward", "projection_backward"):
+              "segsum_f32", "projection_forward", "projection_backward",
+              "adam"):
         check(got[k] > 0, f"phase8d: {k} never launched")
     for k in ("rasterize_mxu", "rasterize_backward_mxu", "segsum_bf16"):
         check(got[k] == 0, f"phase8d: {k} launched")
@@ -2663,7 +2770,8 @@ def phase8_viewer(scene, dev, tag):
             thread.join(timeout=30)
         check(launches["expand"] == len(poses)
               and launches["rasterize_vpu"] == len(poses)
-              and launches["projection_forward"] == len(poses),
+              and launches["projection_forward"] == len(poses)
+              and launches["adam"] == 0,
               f"phase8e: launches {launches}")
         psnrs = []
         for (pos, front, up), body in zip(poses, frames):
@@ -3001,7 +3109,7 @@ def phase9b(scene, cam, cfg, dev, tmp):
         check_launches("phase9b training step", first, expand=1,
                        rasterize_mxu=1, rasterize_backward_mxu=1,
                        segsum_f32=1, sh_forward=1, sh_backward=1,
-                       projection_forward=1, projection_backward=1)
+                       projection_forward=1, projection_backward=1, adam=1)
         check(not over, "phase9b training: overflow")
         check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
               "phase9b training: the loss did not fall")
@@ -3229,11 +3337,11 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
     loss = {k: float(m[2]) for k, m in logs.items()}
     check(loss[iters] < loss[50],
           f"phase10 train: loss {loss[50]} at 50, {loss[iters]} at {iters}")
-    # two views a step: K1, K2 vpu, K3 vpu and K4 f32 twice every step;
-    # the final view-0 render adds one K1 and one K2
+    # two views a step: K1, K2 vpu, K3 vpu and K4 f32 twice every step, K7
+    # once; the final view-0 render adds one K1 and one K2
     per_step = dict(expand=2, rasterize_vpu=2, rasterize_backward_vpu=2,
                     segsum_f32=2, sh_forward=2, sh_backward=2,
-                    projection_forward=2, projection_backward=2)
+                    projection_forward=2, projection_backward=2, adam=1)
     check(len(steps.launches) == iters,
           f"phase10 train: {len(steps.launches)} steps")
     want = {k: per_step.get(k, 0) for k in total}
@@ -3245,7 +3353,7 @@ def phase10_train(root, res, dev, tag, flags, ckpt_every):
                    rasterize_backward_vpu=2 * iters, segsum_f32=2 * iters,
                    sh_forward=2 * iters + 1, sh_backward=2 * iters,
                    projection_forward=2 * iters + 1,
-                   projection_backward=2 * iters)
+                   projection_backward=2 * iters, adam=iters)
     check("[overflow]" not in err and "WARNING" not in err,
           "phase10 train: overflow")
     rnds = [tuple(map(int, m)) for m in DENSIFY_RE.findall(err)]
@@ -3484,6 +3592,7 @@ def main(argv):
         phase1(dev)
         record += phase_sh(dev)
         record += phase_projection(dev)
+        record += phase_adam(dev)
         phase2(card)
         rec, ctx = phase3(dev)
         record += rec

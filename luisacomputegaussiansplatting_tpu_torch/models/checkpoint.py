@@ -7,7 +7,8 @@ tensors, numpy arrays and Python scalars are leaves, saved as
 ``leaf_0``, ``leaf_1``, ... So an npz of ``(GaussianParams, DensifyState,
 step)`` written by either package restores in the other.
 
-A ``torch.optim.Optimizer`` is a node of the port's own: group by group
+A ``torch.optim.Optimizer`` (the trainer's Adam, ``ops/adam.py``, keeps
+``torch.optim.Adam``'s state) is a node of the port's own: group by group
 and parameter by parameter, in order, the three leaves ``step``,
 ``exp_avg`` and ``exp_avg_sq`` of Adam's state (zeros before the first
 step). They are not laid out as optax's state and are not read across

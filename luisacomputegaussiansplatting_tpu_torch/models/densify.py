@@ -17,11 +17,12 @@ free slots in ascending order (one stable argsort); the Adam moments of
 every row that does not survive are zeroed (children always land in such
 rows), graphdeco's optimizer surgery.
 
-The parameters of a ``TrainState`` are leaf tensors that a
-``torch.optim.Adam`` steps, so a round writes into those same tensors under
-``torch.no_grad()`` and returns them: a new tensor would leave the
-optimizer stepping the old one. Their stale ``.grad`` is cleared. Adam's
-``step`` is left alone, as optax leaves its ``count``.
+The parameters of a ``TrainState`` are leaf tensors that the trainer's Adam
+(``ops/adam.py``, a ``torch.optim.Adam`` with torch's state) steps, so a
+round writes into those same tensors under ``torch.no_grad()`` and returns
+them: a new tensor would leave the optimizer stepping the old one. Their
+stale ``.grad`` is cleared. Adam's ``step`` is left alone, as optax leaves
+its ``count``.
 
 The round is :func:`densify_round`, which takes the split noise as a
 tensor; :func:`densify_step` draws that noise from a ``torch.Generator``
@@ -268,7 +269,7 @@ def densify_round(params: GaussianParams, opt, state: DensifyState, noise,
 
     Args:
       params: GaussianParams at capacity C; rewritten in place.
-      opt: the ``torch.optim.Adam`` over ``params`` (the Adam moments of
+      opt: the trainer's Adam over ``params`` (the Adam moments of
         every rewritten row are zeroed), or None.
       noise: (C, split_children, 3) float32 standard normal samples; the
         split children of row i sit at N(mean_i, Sigma_i) through

@@ -3,10 +3,12 @@
 The graphdeco recipe: Adam with a learning rate per parameter group, the
 photometric (1 - w) L1 + w D-SSIM loss, activations applied inside the step
 (the raw parameters are what Adam updates). The optimizer is
-``torch.optim.Adam`` with one parameter group per ``GaussianParams`` field;
-the means group's learning rate follows optax's ``exponential_decay`` and is
-set from :func:`means_lr` before every update, at the count of updates made
-so far, which is when optax evaluates it.
+``ops/adam.py::Adam``, a ``torch.optim.Adam`` whose update of CUDA
+parameters is one kernel launch (K7), with one parameter group per
+``GaussianParams`` field; the means group's learning rate follows optax's
+``exponential_decay`` and is set from :func:`means_lr` before every
+update, at the count of updates made so far, which is when optax evaluates
+it.
 
 Parameters are updated in place: the ``GaussianParams`` of a ``TrainState``
 are leaf tensors that Adam steps, and a step returns the same tensors. The
@@ -34,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..ops.adam import Adam
 from ..ops.render import render_view
 from ..utils.camera import CameraView
 from ..utils.profiling import mark, span
@@ -91,11 +94,12 @@ def _group_lrs(tc: TrainConfig) -> dict:
 
 
 def make_optimizer(params: GaussianParams,
-                   tc: TrainConfig = TrainConfig()) -> torch.optim.Adam:
-    """Adam over the six groups of ``params`` (leaf tensors that require
-    grad), one learning rate each, eps ``tc.adam_eps``."""
+                   tc: TrainConfig = TrainConfig()) -> Adam:
+    """Adam (``ops/adam.py``) over the six groups of ``params`` (leaf
+    tensors that require grad), one learning rate each, eps
+    ``tc.adam_eps``."""
     lrs = _group_lrs(tc)
-    return torch.optim.Adam(
+    return Adam(
         [{"params": [getattr(params, name)], "lr": lrs[name], "name": name}
          for name in GaussianParams._fields],
         betas=(0.9, 0.999), eps=tc.adam_eps,
