@@ -24,7 +24,11 @@ While a profiler records, a step is the range ``train_step`` with the
 layers ``train_step.activate``, ``.loss``, ``.backward``, ``.optimizer``
 and ``.stats`` (each view's ``render_view`` among them), and the backward
 of activation and loss runs under ``train_step.activate.backward`` and
-``train_step.loss.backward`` (``utils/profiling.py``).
+``train_step.loss.backward`` (``utils/profiling.py``). The batched step
+also counts ``train_step.views`` (its B, once a step) and runs the
+engine's sums of the views' gradients of the activated scene under
+``train_step.accumulate.backward``; activation's backward range holds the
+stack of the per-view probes' gradients.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ..config import RenderConfig
 from ..ops.adam import Adam
 from ..ops.render import render_view
 from ..utils.camera import CameraView
-from ..utils.profiling import mark, span
+from ..utils.profiling import count, mark, span
 from .densify import DensifyState, accumulate_stats, ndc_grad_norm
 from .gaussians import GaussianParams
 from .losses import d_ssim_l1_loss
@@ -47,7 +51,8 @@ from .losses import d_ssim_l1_loss
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Learning rates per parameter group (graphdeco defaults).
+    """Learning rates per parameter group and Adam's eps and betas
+    (graphdeco defaults).
 
     The means learning rate decays exponentially from lr_means to
     lr_means_final over lr_means_decay_steps (graphdeco's
@@ -66,6 +71,8 @@ class TrainConfig:
     lr_sh_rest: float = 2.5e-3 / 20.0
     ssim_weight: float = 0.2
     adam_eps: float = 1e-15
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
 
 
 def means_lr(tc: TrainConfig, count: int) -> float:
@@ -97,12 +104,12 @@ def make_optimizer(params: GaussianParams,
                    tc: TrainConfig = TrainConfig()) -> Adam:
     """Adam (``ops/adam.py``) over the six groups of ``params`` (leaf
     tensors that require grad), one learning rate each, eps
-    ``tc.adam_eps``."""
+    ``tc.adam_eps`` and betas (``tc.adam_beta1``, ``tc.adam_beta2``)."""
     lrs = _group_lrs(tc)
     return Adam(
         [{"params": [getattr(params, name)], "lr": lrs[name], "name": name}
          for name in GaussianParams._fields],
-        betas=(0.9, 0.999), eps=tc.adam_eps,
+        betas=(tc.adam_beta1, tc.adam_beta2), eps=tc.adam_eps,
     )
 
 
@@ -242,7 +249,13 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
     package vmaps them); the loss is the mean of the per-view losses, with
     one backward. Statistics: the per-view probe-gradient norms are summed,
     the visibility count adds one per view that sees a gaussian, the max
-    radii take the batch max; ``overflow`` is any view's."""
+    radii take the batch max; ``overflow`` is any view's.
+
+    Each view reads the activated scene through its own marker while a
+    profiler records, so that the engine's sums of the views' gradients
+    (B - 1 sums of 59 floats a gaussian) run under
+    ``train_step.accumulate.backward`` rather than under no range; the
+    step counts ``train_step.views``."""
 
     def step(state: TrainState, dstate: DensifyState, views: CameraView,
              targets):
@@ -257,12 +270,15 @@ def make_batched_train_step(opt: torch.optim.Adam, width: int, height: int,
         # unbind, not probe[v]: its backward is one stack, not a
         # zero-filled (B, C, 2) buffer per view
         probes = probe.unbind(0)
+        count("train_step.views", n_views)
         scene = _activate(params)
         losses, radii, overflow = [], [], []
         for v in range(n_views):
+            view_scene = mark("train_step.accumulate", scene)
             img, aux = render_view(
-                scene.means, scene.scales, scene.quats, scene.opacities,
-                scene.sh, CameraView(*(x[v] for x in views)), width, height,
+                view_scene.means, view_scene.scales, view_scene.quats,
+                view_scene.opacities, view_scene.sh,
+                CameraView(*(x[v] for x in views)), width, height,
                 bg_color, cfg, sh_degree, active_mask=dstate.active,
                 means2d_probe=probes[v],
             )

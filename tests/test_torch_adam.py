@@ -32,6 +32,10 @@ MOMENT_ULPS = 4
 PARAM_TOL = 1e-6
 #: the means learning rate decays over a few steps, so it changes every step
 TC = trainer.TrainConfig(lr_means_decay_steps=4, spatial_lr_scale=2.5)
+#: gsplat's batch rule at 4 views a step (``simple_trainer.py``
+#: ``create_splats_with_optimizers``): betas 1 - 4 (1 - beta), eps / 2
+TC_B4 = trainer.TrainConfig(lr_means_decay_steps=4, spatial_lr_scale=2.5,
+                            adam_eps=5e-16, adam_beta1=0.6, adam_beta2=0.996)
 
 
 @pytest.fixture
@@ -61,14 +65,15 @@ def draw(shape_list, seed, device, tiny_share=0.1):
     return out
 
 
-def torch_twin(params, tc=TC, **kw):
+def torch_twin(params, tc=TC, betas=(0.9, 0.999), **kw):
     """``torch.optim.Adam`` as ``trainer.make_optimizer`` configured it
-    before K7: the same groups, learning rates, betas and eps."""
+    before K7 (the betas then fixed at 0.9 / 0.999): the same groups,
+    learning rates, betas and eps."""
     lrs = trainer._group_lrs(tc)
     return torch.optim.Adam(
         [{"params": [getattr(params, name)], "lr": lrs[name], "name": name}
          for name in GaussianParams._fields],
-        betas=(0.9, 0.999), eps=tc.adam_eps, **kw)
+        betas=betas, eps=tc.adam_eps, **kw)
 
 
 def leaves(values):
@@ -125,6 +130,25 @@ def test_cpu_update_equals_torch_adam(missing):
         p = getattr(state.params, missing)
         assert p not in opt.state and torch.equal(p, start[names.index(missing)])
     assert (adam.KERNEL._lib, adam.KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("tc", [TC, TC_B4], ids=["default", "gsplat_b4"])
+def test_betas_reach_every_group_and_update_as_torch(tc):
+    """``make_optimizer`` puts ``adam_beta1`` / ``adam_beta2`` and
+    ``adam_eps`` into every group; three CPU updates equal
+    ``torch.optim.Adam``'s at those betas bit for bit (at the defaults,
+    the optimizer the betas were fixed in before)."""
+    start = draw(shapes(30), 12, "cpu")
+    state, opt = trainer.init_train_state(GaussianParams(*start), tc)
+    betas = (tc.adam_beta1, tc.adam_beta2)
+    assert [g["betas"] for g in opt.param_groups] == [betas] * 6
+    assert [g["eps"] for g in opt.param_groups] == [tc.adam_eps] * 6
+    twin_params = leaves(start)
+    twin = torch_twin(twin_params, tc, betas)
+    steps = [draw(shapes(30), 40 + k, "cpu") for k in range(3)]
+    run_steps(opt, state.params, steps, tc=tc)
+    run_steps(twin, twin_params, steps, tc=tc)
+    assert_states_equal(opt, state.params, twin, twin_params)
 
 
 def test_state_layout_matches_torch():
@@ -354,21 +378,22 @@ def assert_close_to_torch(got_opt, got_params, want_opt, want_params,
         assert err <= PARAM_TOL * scale, (err, scale)
 
 
-def card_run(dev, sizes, n_steps, missing=(), seed=0):
+def card_run(dev, sizes, n_steps, missing=(), seed=0, tc=TC):
     """(K7's params and optimizer, torch's foreach twin's, the start) after
     ``n_steps`` updates of the six groups shaped by ``sizes`` (a gaussian
     count, or one list of shapes); ``missing`` groups have no gradient."""
     shp = shapes(sizes) if isinstance(sizes, int) else sizes
     start = draw(shp, seed, dev)
-    state, opt = trainer.init_train_state(GaussianParams(*start), TC)
+    state, opt = trainer.init_train_state(GaussianParams(*start), tc)
     twin_params = leaves(start)
-    twin = torch_twin(twin_params, foreach=True)
+    twin = torch_twin(twin_params, tc, (tc.adam_beta1, tc.adam_beta2),
+                      foreach=True)
     names = GaussianParams._fields
     for k in range(n_steps):
         grads = [None if n in missing else g for n, g in
                  zip(names, draw(shp, seed + 1 + k, dev))]
-        run_steps(opt, state.params, [grads], first=k)
-        run_steps(twin, twin_params, [grads], first=k)
+        run_steps(opt, state.params, [grads], first=k, tc=tc)
+        run_steps(twin, twin_params, [grads], first=k, tc=tc)
     torch.cuda.synchronize()
     return state.params, opt, twin_params, twin, start
 
@@ -381,6 +406,16 @@ def test_kernel_matches_torch_scaled_scene(card):
     adam.KERNEL.reset_launches()
     got, opt, want, twin, start = card_run(card, 100_000, 3)
     assert adam.KERNEL.launches == 3
+    assert_close_to_torch(opt, got, twin, want, start)
+
+
+@pytest.mark.card
+def test_kernel_matches_torch_at_batch_betas(card):
+    """gsplat's batch-4 betas (0.6, 0.996) and eps 5e-16 reach K7: three
+    updates within tolerance of torch's foreach update at the same."""
+    got, opt, want, twin, start = card_run(card, 20_000, 3, seed=5,
+                                           tc=TC_B4)
+    assert [g["betas"] for g in opt.param_groups] == [(0.6, 0.996)] * 6
     assert_close_to_torch(opt, got, twin, want, start)
 
 

@@ -50,7 +50,8 @@ STAGES = ("sh", "project", "expand", "sort", "pack", "gather", "blend",
 #: or of their ``.backward`` twins
 LAYERS = ({f"render_view.{s}" for s in STAGES}
           | {f"train_step.{s}" for s in ("activate", "loss", "backward",
-                                         "optimizer", "stats")})
+                                         "optimizer", "stats",
+                                         "accumulate")})
 #: the backward's ranges of one view, in the order they run
 VIEW_BACKWARD = ["train_step.loss"] + [f"render_view.{s}" for s in (
     "compose", "blend", "gather", "pack", "project", "sh")]
@@ -236,14 +237,22 @@ def test_each_op_lies_under_one_layer_range(kind, cfg, monkeypatch):
     assert not stray, stray
 
     # the backward's ranges, in the order they opened: each view's in
-    # reverse layer order, the last view first, activation last
+    # reverse layer order (in the batched step, then the view's marker on
+    # the activated scene), the last view first, activation last
     order = [e.name[:-len(".backward")] for e in
              sorted(events, key=lambda e: e.time_range.start)
              if e.name.endswith(".backward") and e.name != "train_step.backward"]
     runs = [name for i, name in enumerate(order)
             if i == 0 or order[i - 1] != name]
     n_views = 2 if kind == "batched" else 1
-    assert runs == VIEW_BACKWARD * n_views + ["train_step.activate"], runs
+    per_view = VIEW_BACKWARD + (["train_step.accumulate"]
+                                if kind == "batched" else [])
+    assert runs == per_view * n_views + ["train_step.activate"], runs
+    # the engine's sums of the views' gradients of the five activated
+    # tensors: B - 1 each, every one under the accumulation's range
+    sums = [e for e in events if e.name in ("aten::add", "aten::add_")
+            and "train_step.accumulate.backward" in _program_ranges(e)]
+    assert len(sums) == (5 * (n_views - 1) if kind == "batched" else 0)
 
     # the markers add their views and nothing else
     monkeypatch.setattr(profiling, "_boundary", lambda layer, x: x)

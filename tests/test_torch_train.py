@@ -9,6 +9,8 @@ rounding-level gradient differences into steps of size lr). The tiny-scene
 fit of ``tests/test_train.py``: loss halves in 30 steps, PSNR +3 dB.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -89,7 +91,11 @@ def test_adam_matches_optax_on_the_same_gradients():
     tc = pt.TrainConfig(lr_means=1e-2, lr_means_decay_steps=5)
     arrays = random_params(0)
     jparams = jg.GaussianParams(*map(jnp.asarray, arrays))
-    jopt = jt.make_optimizer(jt.TrainConfig(**vars(tc)))
+    # the JAX package's TrainConfig has no betas (its Adam keeps optax's
+    # 0.9 / 0.999, the port's defaults): pass the fields it has
+    jfields = {f.name for f in dataclasses.fields(jt.TrainConfig)}
+    jopt = jt.make_optimizer(jt.TrainConfig(
+        **{k: v for k, v in vars(tc).items() if k in jfields}))
     jstate = jopt.init(jparams)
     state, opt = pt.init_train_state(pg.params_from_numpy(*arrays, "cpu"), tc)
     for step in range(3):
